@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Smoke run of the tpu_sage_torch port on one CUDA card.
+
+Run from the root of the checkout with no arguments::
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and passed over):
+
+1. device: a CUDA card must be present; prints its name and power limit;
+2. build: compiles the four CUDA kernels from ``tpu_sage_torch/kernels/csrc``
+   with ``nvcc`` for ``sm_90a`` (one process per source, in parallel);
+3. kernels: holds every kernel against its plain PyTorch version at the
+   shapes the main path gives it (sampler hops, feature gathers, deepest
+   fanout mean, both layers' mean + projection, forward and backward) and
+   times kernel, plain version and one PyTorch library call with CUDA events;
+4. reference: one full-width forward (232,965 × 602 Reddit-shaped store,
+   bf16, injected levels, the same flax-layout params) on the card against
+   the same forward on the CPU with the plain versions, and three f32 train
+   steps on a small store, card against CPU;
+5. main path: ``Trainer`` on the full-width store, batch 512, fanouts
+   (25, 10), dims (128, 128), bf16, mean/identity, lr 0.01 — warm-up, then
+   with every launch counter at 0, 30 ``train_step``s and a short sampled
+   eval; each kernel must launch its per-step count; prints ms/step and
+   edges/s (edges/step = B·(f1 + f1·f2) = 140,800), then profiles 5 more
+   steps with torch.profiler: device kernel time by name, the device busy
+   share against the unprofiled ms/step, and kernel launches per step;
+6. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+BATCH, FANOUTS, DIMS = 512, (25, 10), (128, 128)
+TRAIN_STEPS, WARMUP_STEPS, PROFILE_STEPS = 30, 3, 5
+EVAL_NODES = 4096
+PER_STEP = {"select_columns": 2, "gather_rows": 6, "gather_fanout_mean": 1, "mean_project": 2}
+
+# Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
+# f32 FLOP/s. The SXM part is the default; the PCIe part by name.
+PEAKS = {
+    "sxm": (3.35e12, 989e12, 67e12),
+    "pcie": (2.0e12, 756e12, 51e12),
+}
+SOURCES = {
+    "select_columns": ("tpu_sage_torch/kernels/csrc/select.cu",
+                       "tpu_sage/kernels/select.py:29"),
+    "gather_rows": ("tpu_sage_torch/kernels/csrc/gather.cu",
+                    "tpu_sage/kernels/gather.py:64"),
+    "gather_fanout_mean": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
+                           "tpu_sage/kernels/gather_mean.py:93"),
+    "mean_project": ("tpu_sage_torch/kernels/csrc/mean_project.cu",
+                     "tpu_sage/kernels/mean_project.py:56"),
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_ms(torch, fn, reps: int = 20) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, CUDA events. A
+    device-side sleep before each call lets the host enqueue the call before
+    the card reaches it, so host overhead stays out of the interval."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(s.elapsed_time(e) for s, e in pairs)
+    return times[len(times) // 2]
+
+
+def phase_kernels(torch, np, graph, levels, peaks):
+    """Phase 3: each kernel against its plain version at main-path shapes."""
+    from tpu_sage_torch.kernels import gather, gather_mean, mean_project, select
+
+    bw, bf16_peak, f32_peak = peaks
+    feats, adj, deg = graph.feats, graph.adj, graph.degrees
+    n = adj.shape[0]
+    l0, l1, l2 = levels
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cases = []
+
+    def distinct(ids):
+        return int(torch.unique(ids).numel())
+
+    def add(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=bf16_peak,
+            tol=None, per_step=1):
+        cases.append(dict(kernel=kernel, case=case, kernel_fn=kernel_fn, plain_fn=plain_fn,
+                          library_fn=library_fn, bytes=float(nbytes), flops=float(flops),
+                          peak=peak, tol=tol, per_step=per_step))
+
+    # select: hop 1 (512 x 25 of 128) and hop 2 (12800 x 10 of 128)
+    for ids, f in ((l0, FANOUTS[0]), (l1, FANOUTS[1])):
+        rows = adj[ids.long()]
+        d = deg[ids.long()].clamp_min(1)
+        u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
+        cols = torch.minimum((u * d[:, None].float()).int(), d[:, None] - 1).contiguous()
+        cols64 = cols.long()
+        sectors = torch.unique(
+            (torch.arange(rows.shape[0], device="cuda")[:, None] * rows.shape[1] + cols64) // 8)
+        add("select_columns", f"rows int32 {tuple(rows.shape)}, cols {tuple(cols.shape)}",
+            lambda r=rows, c=cols: select.select_columns(r, c),
+            lambda r=rows, c=cols: select.select_columns_reference(r, c),
+            lambda r=rows, c=cols64: torch.gather(r, 1, c),
+            32 * sectors.numel() + 8 * cols.numel())
+
+    # gather: degrees, adjacency rows and feature rows at q = 512 and 12800
+    deg2 = deg.view(-1, 1)
+    for ids in (l0, l1):
+        q, ids64, nd = ids.shape[0], ids.long(), distinct(ids)
+        for name, tab in (("degrees int32", deg2), ("adjacency int32", adj), ("feats bf16", feats)):
+            row = tab.shape[1] * tab.element_size()
+            add("gather_rows", f"{name} {tuple(tab.shape)} q={q}",
+                lambda t=tab, i=ids: gather.gather_rows(t, i),
+                lambda t=tab, i=ids: gather.gather_rows_reference(t, i),
+                lambda t=tab, i=ids64: t[i],
+                4 * q + nd * row + q * row)
+
+    # fanout mean: deepest level, 128,000 ids, F = 10 -> (12800, 602) f32
+    f = FANOUTS[1]
+    r, dcol = l2.shape[0] // f, feats.shape[1]
+    l2_64 = l2.long()
+    add("gather_fanout_mean", f"bf16 {tuple(feats.shape)} ids={l2.shape[0]} F={f}",
+        lambda: gather_mean.gather_fanout_mean(feats, l2, f),
+        lambda: gather_mean.gather_fanout_mean_reference(feats, l2, f),
+        lambda: feats[l2_64].float().view(r, f, dcol).mean(1),
+        4 * l2.shape[0] + distinct(l2) * dcol * 2 + r * dcol * 4,
+        flops=l2.shape[0] * dcol, peak=f32_peak, tol=(1e-5, 1e-6))
+
+    # mean + projection: layer 0 x (512, 25, 602), layer 1 x (512, 25, 256)
+    x0 = feats[l1.long()].view(BATCH, FANOUTS[0], dcol)
+    x1 = torch.relu(torch.randn((BATCH, FANOUTS[0], 2 * DIMS[0]), generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+    for label, x in (("layer 0", x0), ("layer 1", x1)):
+        b, fo, d = x.shape
+        w = (torch.randn((d, DIMS[1]), generator=gen, device="cuda") / d ** 0.5).to(x.dtype)
+        add("mean_project", f"{label} x bf16 {tuple(x.shape)}, W {tuple(w.shape)}",
+            lambda x=x, w=w: mean_project.mean_project(x, w),
+            lambda x=x, w=w: mean_project.mean_project_reference(x, w),
+            lambda x=x, w=w: x.mean(1) @ w,
+            x.numel() * 2 + w.numel() * 2 + b * DIMS[1] * 2,
+            flops=2 * b * d * DIMS[1] + b * fo * d, tol=(1e-2, 1e-2))
+
+    results = []
+    for c in cases:
+        out = c["kernel_fn"]()
+        torch.cuda.synchronize()
+        ref = c["plain_fn"]()
+        torch.cuda.synchronize()
+        err = (out.double() - ref.double()).abs().max().item()
+        if c["tol"] is None:
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{c['kernel']} [{c['case']}] differs from its plain "
+                                     f"version (max abs err {err})")
+        else:
+            rtol, atol = c["tol"]
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+        ms = cuda_ms(torch, c["kernel_fn"])
+        plain_ms = cuda_ms(torch, c["plain_fn"])
+        library_ms = cuda_ms(torch, c["library_fn"])
+        bound_bytes = c["bytes"] / bw * 1e3
+        bound_ops = c["flops"] / c["peak"] * 1e3
+        res = dict(kernel=c["kernel"], case=c["case"], per_step=c["per_step"],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
+                   bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                   bytes=c["bytes"])
+        results.append(res)
+        log(f"  {c['kernel']:<19} {c['case']:<52} err {err:.3g}  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f}  library {library_ms:.4f}  bound {res['bound_ms']:.4f} "
+            f"({res['bound_by']})")
+
+    # edge cases the main path never produces: out-of-range ids and columns,
+    # an f32 table, and the mean_project backward
+    ids_oob = torch.tensor([-n - 5, -1, 0, 5, n - 1, n, n + 7], dtype=torch.int32, device="cuda")
+    for oob in ("clamp", "zero"):
+        if not torch.equal(gather.gather_rows(feats, ids_oob, oob),
+                           gather.gather_rows_reference(feats, ids_oob, oob)):
+            raise AssertionError(f"gather_rows oob={oob} differs from its plain version")
+    rows = adj[l0.long()]
+    cols_oob = torch.randint(-3, rows.shape[1] + 3, (rows.shape[0], 25), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    if not torch.equal(select.select_columns(rows, cols_oob),
+                       select.select_columns_reference(rows, cols_oob)):
+        raise AssertionError("select_columns differs on out-of-range columns")
+    feats32 = feats.float()
+    torch.testing.assert_close(gather_mean.gather_fanout_mean(feats32, l2, f),
+                               gather_mean.gather_fanout_mean_reference(feats32, l2, f),
+                               rtol=1e-5, atol=1e-6)
+    del feats32
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        x = x0.to(dtype)
+        w = (torch.randn((dcol, DIMS[1]), generator=gen, device="cuda") / dcol ** 0.5).to(dtype)
+        g = torch.randn((BATCH, DIMS[1]), generator=gen, device="cuda").to(dtype)
+        grads = []
+        for fwd in (mean_project.mean_project,
+                    lambda a, b: (a.float().mean(1) @ b.float()).to(a.dtype)):
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            out = fwd(xa, wa)
+            out.backward(g)
+            grads.append((out.detach().float(), xa.grad.float(), wa.grad.float()))
+        for k, (a, b) in zip(("out", "dx", "dW"), zip(*grads)):
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
+                                       msg=lambda m, k=k: f"mean_project {dtype} {k}: {m}")
+    torch.cuda.synchronize()
+    log("  out-of-range ids/cols, f32 fanout mean, mean_project backward (bf16, f32): ok")
+    return results
+
+
+def phase_reference(torch, np, store, levels_cuda):
+    """Phase 4: full-width bf16 forward card vs CPU, and a small f32 train
+    parity run card vs CPU."""
+    from tpu_sage_torch.data.synthetic import sbm_problem
+    from tpu_sage_torch.nn.params import flax_params, load_flax_params
+    from tpu_sage_torch.train.trainer import TrainConfig, Trainer, build_model
+
+    cfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                      output_dims=DIMS, compute_dtype="bfloat16", seed=11)
+    src = build_model(cfg, store.n_nodes, store.n_classes, store.feat_dim)
+    src.reset_parameters(torch.Generator().manual_seed(cfg.seed))
+    tree = flax_params(src)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = load_flax_params(build_model(cfg, store.n_nodes, store.n_classes,
+                                             store.feat_dim), tree).to(dev)
+        feats = torch.from_numpy(store.feats).to(device=dev, dtype=torch.bfloat16)
+        with torch.no_grad():
+            outs[dev] = model([l.to(dev) for l in levels_cuda], feats).float().cpu()
+        del feats
+    scale = outs["cpu"].abs().max().item()
+    err = (outs["cuda"] - outs["cpu"]).abs().max().item()
+    if not (torch.isfinite(outs["cuda"]).all() and err <= 3e-2 * scale):
+        raise AssertionError(f"full-width logits: card vs CPU max abs err {err} "
+                             f"> 3e-2 x {scale}")
+    log(f"  full-width bf16 forward {tuple(outs['cuda'].shape)}: max abs err {err:.4g} "
+        f"(limit 3e-2 x max|logit| = {3e-2 * scale:.4g})")
+
+    problem = sbm_problem(n_nodes=800, n_classes=5, feat_dim=32)
+    small = TrainConfig(batch_size=64, n_train_samples=(10, 5), n_val_samples=(10, 5),
+                        output_dims=(32, 32), lr_init=0.01)
+    rng = np.random.default_rng(3)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        graph = problem.device_graph(train=True, device=dev)
+        model = build_model(small, problem.n_nodes, problem.n_classes, problem.feats_dim)
+        trainer = Trainer(model, small, steps_per_epoch=10, task=problem.task)
+        state = trainer.init_state(graph)
+        rng = np.random.default_rng(3)
+        losses[dev] = []
+        for _ in range(3):
+            ids = rng.integers(0, problem.n_nodes, 64)
+            lv = [ids, rng.integers(0, problem.n_nodes, 640), rng.integers(0, problem.n_nodes, 3200)]
+            lv = [torch.as_tensor(a, dtype=torch.int32, device=dev) for a in lv]
+            state, m = trainer.train_step(state, graph, lv[0], graph.targets[lv[0].long()],
+                                          levels=lv)
+            losses[dev].append(float(m["loss"]))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    log(f"  small f32 train steps card {losses['cuda']} vs CPU {losses['cpu']}: ok (rtol 1e-4)")
+
+
+def phase_main_path(torch, np, problem):
+    """Phase 5: the trainer on the full-width store, counters from 0."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.train.trainer import TrainConfig, Trainer, build_model
+
+    cfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                      output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01, epochs=1)
+    train_ids = problem.folds["train"]
+    model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+    trainer = Trainer(model, cfg, steps_per_epoch=len(train_ids) // BATCH, task=problem.task)
+    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda")
+    state = trainer.init_state(graph)
+    perm = np.random.default_rng(5).permutation(train_ids)
+    batches = [torch.as_tensor(perm[i * BATCH:(i + 1) * BATCH], dtype=torch.int32, device="cuda")
+               for i in range(WARMUP_STEPS + TRAIN_STEPS)]
+    for ids in batches[:WARMUP_STEPS]:
+        state, _ = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+    torch.cuda.synchronize()
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for ids in batches[WARMUP_STEPS:]:
+        state, m = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    val_ids = problem.folds["val"][:EVAL_NODES]
+    graph_full = problem.device_graph(train=False, dtype=torch.bfloat16, device="cuda")
+    val = trainer.evaluate(graph_full, val_ids, problem.store.targets[val_ids],
+                           torch.Generator(device="cuda").manual_seed(cfg.seed + 1))
+    counts = kernels.launch_counts()
+
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite training loss: {losses}")
+    first, last = losses[:5].mean(), losses[-5:].mean()
+    if not last < first:
+        raise AssertionError(f"loss did not fall: first 5 steps {first}, last 5 {last}")
+    for name, per_step in PER_STEP.items():
+        if train_counts[name] != per_step * TRAIN_STEPS:
+            raise AssertionError(f"{name}: {train_counts[name]} launches in {TRAIN_STEPS} "
+                                 f"steps, expected {per_step} per step")
+        if counts[name] <= train_counts[name]:
+            raise AssertionError(f"{name}: the sampled eval launched it no time")
+    if not 0.0 <= val <= 1.0:
+        raise AssertionError(f"val accuracy out of range: {val}")
+    ms_step = dt / TRAIN_STEPS * 1e3
+    edges = BATCH * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
+    log(f"  {TRAIN_STEPS} steps: loss first-5 mean {first:.4f} -> last-5 mean {last:.4f}; "
+        f"sampled val accuracy on {len(val_ids)} nodes {val:.4f}")
+    log(f"  launches in {TRAIN_STEPS} train steps {train_counts}; with the eval {counts}")
+    log(json.dumps({"main_path": {"ms_per_step": ms_step,
+                                  "edges_per_s": edges * TRAIN_STEPS / dt,
+                                  "edges_per_step": edges, "steps": TRAIN_STEPS,
+                                  "loss_first5": float(first), "loss_last5": float(last),
+                                  "val_accuracy": val}}))
+    profile_steps(torch, trainer, state, graph, batches[:PROFILE_STEPS], ms_step)
+    return counts
+
+
+def profile_steps(torch, trainer, state, graph, batches, ms_step):
+    """Where a step's time goes: device kernel time by name over a few steps
+    under torch.profiler, against the unprofiled ms/step above."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for ids in batches:
+            state, _ = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / len(batches), e.count // len(batches))
+                      for e in avgs if e.device_type == DeviceType.CUDA
+                      and not e.is_user_annotation),  # ranges such as Optimizer.step
+                     key=lambda k: -k[1])
+    launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC")) / len(batches)
+    device_ms = sum(k[1] for k in kernels)
+    if device_ms == 0.0:
+        log("  profile: the profiler recorded no device time; device busy share not measured")
+        return
+    log(json.dumps({"step_profile": {
+        "steps": len(batches), "device_kernel_ms_per_step": device_ms,
+        "unprofiled_ms_per_step": ms_step, "device_busy_share": device_ms / ms_step,
+        "kernel_launches_per_step": launches,
+        "top_kernels_ms_per_step": [[k[0][:80], k[1], k[2]] for k in kernels[:12]]}}))
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this run needs a CUDA card",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import bench_store
+    from tpu_sage_torch.kernels import _build
+    from tpu_sage_torch.sample.sampler import sample_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    log("phase 1: device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"  {smi}")
+    name = torch.cuda.get_device_name(0)
+    peaks = PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda}; peaks used: "
+        f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} TFLOP/s bf16, {peaks[2] / 1e12} f32")
+
+    log("phase 2: build")
+    t0 = time.perf_counter()
+    _build.build()
+    log(f"  built {len(_build.SOURCES)} kernels with nvcc in {time.perf_counter() - t0:.2f} s "
+        f"into {_build.BUILD_DIR}")
+    for src in _build.SOURCES:
+        with open(_build.library_path(src)[1] + ".log") as f:
+            regs = [ln.split(":", 1)[1].strip() for ln in f if "Used" in ln]
+        log(f"  {src}.cu: {'; '.join(regs)}")
+
+    t0 = time.perf_counter()
+    store = bench_store(cache_dir="0")
+    problem = NodeProblem(store)
+    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda")
+    log(f"  bench_store {store.feats.shape} built and uploaded in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    roots = torch.as_tensor(store.folds["train"][:BATCH], dtype=torch.int32, device="cuda")
+    levels = sample_tree(graph.adj, graph.degrees, roots, FANOUTS, generator=gen)
+    torch.cuda.synchronize()
+
+    log("phase 3: kernels against their plain versions at main-path shapes")
+    results = phase_kernels(torch, np, graph, levels, peaks)
+
+    log("phase 4: card against CPU")
+    phase_reference(torch, np, store, levels)
+
+    log("phase 5: main path")
+    counts = phase_main_path(torch, np, problem)
+
+    kernels_line = []
+    for name_k, (source, replaces) in SOURCES.items():
+        rows = [r for r in results if r["kernel"] == name_k]
+        step = lambda key: sum(r[key] * r["per_step"] for r in rows)  # noqa: E731
+        kernels_line.append({
+            "name": name_k, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name_k], "launches_per_step": PER_STEP[name_k],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
+            "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                         else "operations"),
+            "library_ms": step("library_ms"),
+            "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")} for r in rows],
+        })
+    log(f"{smi}")
+    log(json.dumps({"kernels": kernels_line}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,51 @@
+"""The port stands alone: tpu_sage_torch and chip_smoke.py import neither JAX
+nor anything of the JAX package."""
+
+import glob
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(glob.glob(os.path.join(REPO, "tpu_sage_torch", "**", "*.py"), recursive=True))
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b"
+    r"|import\s+tpu_sage(\.|\s|$)|from\s+tpu_sage(\.|\s))",
+    re.MULTILINE,
+)
+
+
+def test_importing_the_port_loads_no_jax_module():
+    code = (
+        "import sys\n"
+        "before = set(sys.modules)\n"
+        "import tpu_sage_torch, tpu_sage_torch.train.trainer, tpu_sage_torch.data.synthetic\n"
+        "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'tpu_sage'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"port imported: {out.stdout.strip()}"
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [os.path.join(REPO, "chip_smoke.py")],
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_has_no_jax_or_reference_import(path):
+    with open(path) as f:
+        hits = FORBIDDEN.findall(f.read())
+    assert not hits, f"{os.path.relpath(path, REPO)} imports {hits}"
+
+
+def test_forbidden_pattern_catches_what_it_should():
+    for line in ("import jax", "from jax import numpy", "import flax.linen as nn",
+                 "from tpu_sage.ops import row_gather", "import tpu_sage",
+                 "  from optax import adam"):
+        assert FORBIDDEN.search(line), line
+    for line in ("import tpu_sage_torch", "from tpu_sage_torch.ops import row_gather",
+                 "# tpu_sage/kernels/select.py", "import jaxtyping_like_name_x"):
+        assert not FORBIDDEN.search(line), line

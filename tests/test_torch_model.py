@@ -1,0 +1,171 @@
+"""tpu_sage_torch GSSupervised against the JAX package's, on injected levels.
+
+The flax parameters are carried over with ``load_flax_params``; logits and
+parameter gradients must agree in f32, and within bf16 tolerance in bf16
+(the port's ``mean_project`` keeps the neighbor mean in f32 before the
+product where JAX rounds it to bf16).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_sage.nn.model import GSSupervised as JGSSupervised
+from tpu_sage.nn.model import default_layer_specs as j_specs
+from tpu_sage.train.losses import cross_entropy as j_cross_entropy
+from tpu_sage_torch.nn.model import GSSupervised, _l2_normalize, default_layer_specs
+from tpu_sage_torch.nn.params import flax_key, flax_params, load_flax_params
+from tpu_sage_torch.train.losses import cross_entropy
+
+N_NODES, D, N_CLASSES, B, FANOUTS, DIMS = 40, 16, 7, 6, (5, 3), (24, 24)
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(N_NODES, D)).astype(np.float32)
+    sizes = [B, B * FANOUTS[0], B * FANOUTS[0] * FANOUTS[1]]
+    levels = [rng.integers(0, N_NODES, size=s).astype(np.int32) for s in sizes]
+    targets = rng.integers(0, N_CLASSES, size=B).astype(np.int32)
+    return feats, levels, targets
+
+
+def _pair(combine, fuse_last, dtype):
+    jmodel = JGSSupervised(layer_specs=j_specs(fanouts=FANOUTS, output_dims=DIMS),
+                           n_classes=N_CLASSES, combine=combine, fuse_last=fuse_last,
+                           dtype=dtype)
+    tmodel = GSSupervised(default_layer_specs(fanouts=FANOUTS, output_dims=DIMS), N_CLASSES,
+                          feat_dim=D, combine=combine, fuse_last=fuse_last,
+                          dtype=None if dtype is None else getattr(torch, dtype))
+    return jmodel, tmodel
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: np.asarray(v)})
+    return out
+
+
+def _run_both(combine, fuse_last, dtype):
+    feats, levels, targets = _inputs()
+    jmodel, tmodel = _pair(combine, fuse_last, dtype)
+    jdt = jnp.bfloat16 if dtype else jnp.float32
+    jfeats, jlevels = jnp.asarray(feats, jdt), [jnp.asarray(l) for l in levels]
+    params = jmodel.init(jax.random.key(4), jlevels, jfeats)
+    jlogits = np.asarray(jmodel.apply(params, jlevels, jfeats).astype(jnp.float32))
+    jgrads = _flat(jax.grad(lambda p: j_cross_entropy(
+        jmodel.apply(p, jlevels, jfeats), jnp.asarray(targets)))(params))
+
+    load_flax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
+    tfeats = torch.from_numpy(feats).to(torch.bfloat16 if dtype else torch.float32)
+    tlogits = tmodel([torch.from_numpy(l) for l in levels], tfeats)
+    cross_entropy(tlogits, torch.from_numpy(targets)).backward()
+    tgrads = {flax_key(n): p.grad.numpy() for n, p in tmodel.named_parameters()}
+    assert sorted(tgrads) == sorted(jgrads)
+    return jlogits, tlogits.detach().float().numpy(), jgrads, tgrads
+
+
+@pytest.mark.parametrize("combine", ["concat", "add"])
+@pytest.mark.parametrize("fuse_last", ["auto", "off"])
+def test_f32_logits_and_grads_match_flax(combine, fuse_last):
+    jlogits, tlogits, jgrads, tgrads = _run_both(combine, fuse_last, None)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=1e-5, atol=1e-5)
+    for k in jgrads:
+        np.testing.assert_allclose(tgrads[k], jgrads[k], rtol=1e-4, atol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("combine", ["concat", "add"])
+@pytest.mark.parametrize("fuse_last", ["auto", "off"])
+def test_bf16_logits_and_grads_within_bf16_tolerance(combine, fuse_last):
+    jlogits, tlogits, jgrads, tgrads = _run_both(combine, fuse_last, "bfloat16")
+    scale = np.abs(jlogits).max()
+    np.testing.assert_allclose(tlogits, jlogits, rtol=0, atol=3e-2 * scale)
+    for k in jgrads:
+        g = np.abs(jgrads[k]).max()
+        np.testing.assert_allclose(tgrads[k], jgrads[k], rtol=0, atol=3e-2 * g, err_msg=k)
+
+
+def test_bf16_logits_dtype_follows_flax_dense():
+    feats, levels, _ = _inputs()
+    _, tmodel = _pair("concat", "auto", "bfloat16")
+    tmodel.reset_parameters(torch.Generator().manual_seed(0))
+    out = tmodel([torch.from_numpy(l) for l in levels], torch.from_numpy(feats).bfloat16())
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, N_CLASSES)
+    assert all(p.dtype == torch.float32 for p in tmodel.parameters())
+
+
+def test_zero_embedding_row_gives_zero_output_and_finite_grads():
+    feats, levels, targets = _inputs()
+    feats[0] = 0.0
+    for l in levels:  # root 0's whole tree is node 0
+        l[: len(l) // B] = 0
+    _, tmodel = _pair("concat", "auto", None)
+    tmodel.reset_parameters(torch.Generator().manual_seed(1))
+    emb = tmodel.encode([torch.from_numpy(l) for l in levels], torch.from_numpy(feats))
+    assert torch.equal(emb[0], torch.zeros_like(emb[0]))
+    cross_entropy(tmodel.fc(emb), torch.from_numpy(targets)).backward()
+    assert all(torch.isfinite(p.grad).all() for p in tmodel.parameters())
+
+
+def test_l2_normalize_matches_reference():
+    from tpu_sage.nn.model import _l2_normalize as j_l2
+
+    x = np.random.default_rng(2).normal(size=(5, 9)).astype(np.float32)
+    x[1] = 0.0
+    np.testing.assert_allclose(_l2_normalize(torch.from_numpy(x)).numpy(),
+                               np.asarray(j_l2(jnp.asarray(x))), rtol=1e-6, atol=1e-7)
+
+
+def test_fresh_init_matches_flax_statistics_and_roundtrips():
+    """lecun_normal kernels (truncated normal, variance 1/fan_in), zero bias;
+    flax_params → load_flax_params is the identity."""
+    tmodel = GSSupervised(default_layer_specs(fanouts=(5, 3), output_dims=(256, 256)), 41,
+                          feat_dim=602)
+    tmodel.reset_parameters(torch.Generator().manual_seed(0))
+    k = tmodel.agg_layers[0].fc_self.kernel.detach().numpy()
+    assert abs(k.var() * 602 - 1.0) < 0.02
+    assert np.abs(k).max() <= 2.0 * np.sqrt(1 / 602) / 0.87962566103423978 + 1e-6
+    assert torch.equal(tmodel.fc.bias, torch.zeros(41))
+    assert tmodel.agg_layers[1].fc_neigh.kernel.shape == (512, 256)  # concat doubles width
+    copy = GSSupervised(default_layer_specs(fanouts=(5, 3), output_dims=(256, 256)), 41,
+                        feat_dim=602)
+    load_flax_params(copy, flax_params(tmodel))
+    for a, b in zip(tmodel.parameters(), copy.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_load_flax_params_reads_checkpoint_keys_and_rejects_bad_shapes():
+    _, tmodel = _pair("concat", "auto", None)
+    tree = _flat(flax_params(tmodel))
+    ckpt = {"params/" + k: v for k, v in tree.items()}  # TrainState npz layout
+    ckpt["step"] = np.int32(3)
+    load_flax_params(tmodel, ckpt)
+    bad = dict(tree)
+    bad["params/fc/bias"] = np.zeros(N_CLASSES + 1, np.float32)
+    with pytest.raises(ValueError, match="params/fc/bias"):
+        load_flax_params(tmodel, bad)
+    with pytest.raises(KeyError):
+        load_flax_params(tmodel, {"params/fc/bias": tree["params/fc/bias"]})
+
+
+@pytest.mark.parametrize("kwargs", [dict(aggregator_class="max_pool"),
+                                    dict(prep_class="linear")])
+def test_unported_aggregators_and_preps_raise(kwargs):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GSSupervised(default_layer_specs(), 3, feat_dim=4, **kwargs)
+
+
+def test_forward_with_sampling_runs_the_tree():
+    from tpu_sage_torch.data.synthetic import sbm_store
+
+    store = sbm_store(n_nodes=100, n_classes=3, feat_dim=D, seed=0)
+    tmodel = GSSupervised(default_layer_specs(fanouts=FANOUTS, output_dims=DIMS), 3, feat_dim=D)
+    tmodel.reset_parameters(torch.Generator().manual_seed(0))
+    out = tmodel.forward_with_sampling(
+        torch.from_numpy(store.adj), torch.from_numpy(store.degrees),
+        torch.arange(8, dtype=torch.int32), torch.from_numpy(store.feats), train=True,
+        generator=torch.Generator().manual_seed(1))
+    assert tuple(out.shape) == (8, 3) and torch.isfinite(out).all()

@@ -1,0 +1,118 @@
+"""tpu_sage_torch sampler against the JAX package's.
+
+``torch.Generator`` and ``jax.random`` draw different numbers, so parity
+feeds JAX's uniforms to the port and checks the picked columns bit for bit;
+the distribution of the port's own draws is checked with a χ² test.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import scipy.stats
+import torch
+
+from tpu_sage.sample import sampler as jsampler
+from tpu_sage_torch.sample.sampler import sample_tree, uniform_neighbor_sample
+
+ONE_MINUS_ULP = np.nextafter(np.float32(1.0), np.float32(0.0))
+
+
+def _graph():
+    """Degrees 0 (isolated, self-padded), 1, 3 (< fanout), 8 (full), 5."""
+    rng = np.random.default_rng(0)
+    n, max_degree = 5, 8
+    degrees = np.array([0, 1, 3, 8, 5], dtype=np.int32)
+    adj = np.repeat(np.arange(n, dtype=np.int32)[:, None], max_degree, axis=1)
+    for v, d in enumerate(degrees):
+        adj[v, :d] = rng.integers(0, n, d)
+    return adj, degrees
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_injected_uniforms_pick_reference_columns(seed):
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3, 4, 3, 0, 2], dtype=np.int32)
+    key = jax.random.key(seed)
+    want = jsampler.uniform_neighbor_sample(key, jnp.asarray(adj), jnp.asarray(deg),
+                                            jnp.asarray(ids), 6)
+    u = jax.random.uniform(key, (ids.shape[0], 6))
+    ours = uniform_neighbor_sample(_t(adj), _t(deg), _t(ids), 6, u=_t(u))
+    assert ours.dtype == torch.int32
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(want))
+
+
+def test_uniforms_near_one_and_zero_match_reference(monkeypatch):
+    """u within an ulp of 1.0 must still pick a real neighbor (the min guard);
+    the reference draws the same crafted uniforms through a patched
+    jax.random.uniform."""
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3, 4], dtype=np.int32)
+    u = np.tile(np.array([ONE_MINUS_ULP, 0.0, 0.5, 0.99999, ONE_MINUS_ULP], np.float32), (5, 1))
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape: jnp.asarray(u))
+    want = np.asarray(jsampler.uniform_neighbor_sample(
+        jax.random.key(0), jnp.asarray(adj), jnp.asarray(deg), jnp.asarray(ids), 5))
+    ours = uniform_neighbor_sample(_t(adj), _t(deg), _t(ids), 5, u=_t(u)).numpy()
+    np.testing.assert_array_equal(ours, want)
+    for row, v in enumerate(ids):
+        allowed = adj[v, :max(deg[v], 1)]
+        assert np.isin(ours[row], allowed).all()
+
+
+def test_degree_zero_samples_itself_with_generator():
+    adj, deg = _graph()
+    gen = torch.Generator().manual_seed(0)
+    out = uniform_neighbor_sample(_t(adj), _t(deg), torch.tensor([0, 0], dtype=torch.int32),
+                                  7, generator=gen)
+    assert (out == 0).all()
+
+
+def test_sample_tree_bit_equal_under_reference_key_splits():
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3], dtype=np.int32)
+    fanouts = (5, 3)
+    key = jax.random.key(11)
+    want = jsampler.sample_tree(key, jnp.asarray(adj), jnp.asarray(deg), jnp.asarray(ids), fanouts)
+    us, k, n = [], key, ids.shape[0]
+    for f in fanouts:  # the reference's split structure, one split per hop
+        k, sub = jax.random.split(k)
+        us.append(_t(jax.random.uniform(sub, (n, f))))
+        n *= f
+    ours = sample_tree(_t(adj), _t(deg), _t(ids), fanouts, us=us)
+    assert [l.shape[0] for l in ours] == [4, 20, 60]
+    for a, b in zip(ours, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_sample_tree_generator_is_deterministic_per_seed():
+    adj, deg = _graph()
+    ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+
+    def draw(seed):
+        return sample_tree(_t(adj), _t(deg), ids, (4, 2),
+                           generator=torch.Generator().manual_seed(seed))
+
+    for a, b in zip(draw(3), draw(3)):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in zip(draw(3), draw(4)))
+
+
+def test_generator_draws_are_uniform_over_true_neighbors():
+    """χ² over the 5 true columns of one node (padding never drawn)."""
+    n, max_degree, d = 2, 8, 5
+    adj = np.repeat(np.arange(n, dtype=np.int32)[:, None], max_degree, axis=1)
+    adj[1, :d] = np.arange(10, 10 + d)  # node 1's neighbors are ids 10..14
+    adj = np.concatenate([adj, np.zeros((13, max_degree), np.int32)])
+    degrees = np.zeros(adj.shape[0], np.int32)
+    degrees[1] = d
+    ids = torch.ones(4000, dtype=torch.int32)
+    out = uniform_neighbor_sample(_t(adj), _t(degrees), ids, 10,
+                                  generator=torch.Generator().manual_seed(5)).numpy().ravel()
+    assert np.isin(out, np.arange(10, 10 + d)).all()
+    counts = np.bincount(out - 10, minlength=d)
+    _, pvalue = scipy.stats.chisquare(counts)
+    assert pvalue > 1e-4, f"sampling not uniform: counts={counts}"

@@ -1,0 +1,19 @@
+"""tpu_sage_torch — the PyTorch + CUDA port of tpu_sage for NVIDIA Hopper.
+
+A package of its own beside the JAX reference ``tpu_sage``: it imports
+``torch`` and numpy only, never JAX and nothing of ``tpu_sage``. The layout
+mirrors the reference module for module (``graph/``, ``data/``, ``sample/``,
+``nn/``, ``train/``, ``kernels/``, ``ops.py``) so each counterpart is easy to
+find.
+
+Ported so far: supervised training with the ``mean`` aggregator, ``identity``
+prep and dense padded adjacency — the path ``fit()`` runs. Its four hot
+functions (column select, row gather, gather + fanout mean, mean + projection)
+are hand-written CUDA kernels for ``sm_90a`` (``kernels/csrc``), built with
+``nvcc`` on first use; on CPU tensors each wrapper runs its plain PyTorch
+version instead.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

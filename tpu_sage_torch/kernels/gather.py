@@ -1,0 +1,82 @@
+"""Row gather: ``out[i] = table[ids[i]]``, bitwise.
+
+Counterpart of ``tpu_sage/kernels/gather.py::gather_rows`` (with
+``gather_rows_pallas`` and the bf16 entry ``gather_rows_bf16``). One kernel,
+``csrc/gather.cu``, serves every element type: the wrapper moves each row as
+the widest word (16, 4, 2 or 1 bytes) that divides the row and both base
+addresses. On a CPU tensor the wrapper runs ``gather_rows_reference``.
+
+``oob`` picks the reference's out-of-range semantics (``tpu_sage/ops.py``):
+``"clamp"`` (the ``plain`` form: a negative id wraps once by ``n`` as Python
+indexing does, then clamps to ``[0, n)``) or ``"zero"`` (the ``masked`` form:
+zero rows).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_sage_torch.kernels._build import launch, library, require
+
+LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
+
+_P = ctypes.c_void_p
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "tsg_gather_rows": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P),
+}
+_OOB = {"clamp": 0, "zero": 1}
+
+
+def plain_ids(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The ids a ``plain`` gather reads: negatives wrap once by ``n``, then
+    everything clamps to ``[0, n)``."""
+    return torch.where(ids < 0, ids + n, ids).clamp(0, max(n - 1, 0))
+
+
+def gather_rows_reference(table: torch.Tensor, ids: torch.Tensor,
+                          oob: str = "clamp") -> torch.Tensor:
+    """Plain PyTorch version of ``gather_rows``."""
+    n = table.shape[0]
+    rows = table[plain_ids(ids, n).long()]
+    if oob == "zero":
+        ok = (ids >= 0) & (ids < n)
+        rows = torch.where(ok.view(-1, *([1] * (rows.dim() - 1))), rows,
+                           torch.zeros((), dtype=rows.dtype))
+    return rows
+
+
+def _word_bytes(row_bytes: int, *ptrs: int) -> int:
+    for w in (16, 4, 2):
+        if row_bytes % w == 0 and all(p % w == 0 for p in ptrs):
+            return w
+    return 1
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor, oob: str = "clamp") -> torch.Tensor:
+    """``table (n, w)`` of any dtype, ``ids (q,)`` int32 → ``(q, w)``."""
+    global LAUNCHES
+    if oob not in _OOB:
+        raise ValueError(f"oob must be one of {sorted(_OOB)}, got {oob!r}")
+    if table.device.type == "cpu":
+        return gather_rows_reference(table, ids, oob)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_rows runs on cuda or cpu, got {table.device}")
+    require(table, "table", device=table.device, dtypes=(table.dtype,), ndim=2)
+    require(ids, "ids", device=table.device, dtypes=(torch.int32,), ndim=1)
+    n, w = table.shape
+    q = ids.shape[0]
+    out = torch.empty((q, w), dtype=table.dtype, device=table.device)
+    if out.numel() == 0:
+        return out
+    if n == 0:
+        raise ValueError("cannot gather from an empty table")
+    row_bytes = w * table.element_size()
+    word = _word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+    lib = library("gather", _SIGNATURES)
+    launch(lib.tsg_gather_rows, table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, q,
+           row_bytes, word, _OOB[oob], device=table.device)
+    LAUNCHES += 1
+    return out

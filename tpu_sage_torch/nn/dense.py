@@ -1,0 +1,54 @@
+"""``Dense``: a linear layer with ``flax.linen.Dense``'s layout and casts.
+
+The kernel is stored ``(in, out)`` in f32, as flax stores it, so parameter
+trees carry over key for key (``nn/params.py``). With ``dtype`` set, every
+call casts the input, the kernel and the bias to ``dtype`` and returns
+``dtype`` — flax's ``Dense(dtype=bf16)`` with f32 params. With ``dtype=None``
+the input and params promote to a common type.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+# flax's lecun_normal: variance_scaling(1.0, "fan_in", "truncated_normal"),
+# a normal truncated to ±2 std, rescaled by the std of that truncation
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(kernel: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill an ``(in, out)`` kernel in place with variance ``1 / in``."""
+    std = math.sqrt(1.0 / kernel.shape[0]) / _TRUNC_STD
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std,
+                                           generator=generator)
+
+
+class Dense(torch.nn.Module):
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = torch.nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = torch.nn.Parameter(torch.zeros(out_features)) if use_bias else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Draw the kernel from a CPU ``generator`` (the same values on every
+        device) and zero the bias."""
+        with torch.no_grad():
+            self.kernel.copy_(lecun_normal_(torch.empty(self.kernel.shape), generator))
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def compute_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype(x)
+        y = x.to(dt) @ self.kernel.to(dt)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y

@@ -1,0 +1,194 @@
+"""The supervised GraphSAGE model (counterpart of ``tpu_sage/nn/model.py``).
+
+Sampling builds a static-shape neighborhood tree outside the network
+(``tpu_sage_torch.sample``); the network gathers each level's feature rows,
+collapses the tree top-down with one aggregator per layer (that layer's
+weights applied at every remaining depth), L2-normalizes the embedding and
+applies a linear head.
+
+With ``fuse_last`` on (``"auto"``, the default) the deepest level is never
+gathered row by row: ``row_gather_fanout_mean`` returns its per-root means in
+one pass, and the first layer's deepest pairing finishes from that summary.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from tpu_sage_torch.nn.aggregators import aggregator_lookup
+from tpu_sage_torch.nn.dense import Dense
+from tpu_sage_torch.nn.preps import prep_lookup
+from tpu_sage_torch.ops import row_gather, row_gather_fanout_mean
+from tpu_sage_torch.sample.sampler import sample_tree
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
+    """Row-wise L2 normalization with a NaN-safe backward at zero rows:
+    ``x * rsqrt(sum(x²) + eps)``, the sum in ``x.dtype``. Zero rows map to
+    zero with zero gradient."""
+    sq = torch.sum(x * x, dim=-1, keepdim=True)
+    return x * torch.rsqrt(sq + eps)
+
+
+activation_lookup = {
+    "relu": torch.relu,
+    "elu": torch.nn.functional.elu,
+    "tanh": torch.tanh,
+    "identity": None,
+    None: None,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One aggregation layer: train/eval fanouts, width, activation."""
+
+    n_train_samples: int = 25
+    n_val_samples: int = 25
+    output_dim: int = 128
+    activation: Optional[str] = "relu"
+
+
+def default_layer_specs(
+    fanouts: Sequence[int] = (25, 10),
+    val_fanouts: Optional[Sequence[int]] = None,
+    output_dims: Sequence[int] = (128, 128),
+) -> Tuple[LayerSpec, ...]:
+    """The canonical 2-layer spec: fanout (25, 10), dims (128, 128), ReLU on
+    all but the last layer."""
+    if val_fanouts is None:
+        val_fanouts = fanouts
+    n = len(fanouts)
+    return tuple(
+        LayerSpec(
+            n_train_samples=int(f),
+            n_val_samples=int(v),
+            output_dim=int(d),
+            activation="relu" if i < n - 1 else "identity",
+        )
+        for i, (f, v, d) in enumerate(zip(fanouts, val_fanouts, output_dims))
+    )
+
+
+class GSSupervised(torch.nn.Module):
+    """Supervised GraphSAGE: prep → L aggregation passes → normalize → head.
+
+    Call with the per-level flat id tensors from ``sample_tree`` (or injected
+    levels, for parity tests) and the full feature table. ``dtype`` is the
+    compute dtype (``torch.bfloat16`` for speed); params stay f32.
+    """
+
+    def __init__(
+        self,
+        layer_specs: Tuple[LayerSpec, ...],
+        n_classes: int,
+        feat_dim: int,
+        aggregator_class: str = "mean",
+        prep_class: str = "identity",
+        combine: str = "concat",
+        normalize: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        fuse_last: str = "auto",
+    ):
+        super().__init__()
+        if aggregator_class not in aggregator_lookup:
+            raise NotImplementedError(
+                f"aggregator {aggregator_class!r} is not ported yet (ROADMAP Queue 1 item 8)")
+        if prep_class not in prep_lookup:
+            raise NotImplementedError(
+                f"prep {prep_class!r} is not ported yet (ROADMAP Queue 1 item 8)")
+        if fuse_last not in ("auto", "off", "all"):
+            raise ValueError(f"unknown fuse_last: {fuse_last!r}")
+        self.layer_specs = tuple(layer_specs)
+        self.normalize = normalize
+        self.fuse_last = fuse_last
+        self.prep = prep_lookup[prep_class]()
+        agg_cls = aggregator_lookup[aggregator_class]
+        layers, in_dim = [], feat_dim
+        for spec in self.layer_specs:
+            agg = agg_cls(in_dim, spec.output_dim, activation=activation_lookup[spec.activation],
+                          combine=combine, dtype=dtype)
+            layers.append(agg)
+            in_dim = agg.out_dim()
+        self.agg_layers = torch.nn.ModuleList(layers)
+        self.fc = Dense(in_dim, n_classes, use_bias=True, dtype=dtype)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Fresh init from ``generator``: lecun-normal kernels, zero bias."""
+        for agg in self.agg_layers:
+            agg.fc_self.reset_parameters(generator)
+            agg.fc_neigh.reset_parameters(generator)
+        self.fc.reset_parameters(generator)
+
+    def encode(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
+        """Collapse the neighborhood tree into per-root embeddings ``(B, D)``;
+        the per-level gathers happen here."""
+        fuse_last = feats is not None and len(levels) >= 2 and self.fuse_last != "off"
+        gathered = [
+            None if feats is None else row_gather(feats, ids)
+            for ids in (levels[:-1] if fuse_last else levels)
+        ]
+        if not fuse_last:
+            return self.encode_gathered(levels, gathered)
+        fanout = levels[-1].shape[0] // levels[-2].shape[0]
+        # f32 means, rounded to the table's dtype as the reference's jnp.mean
+        # of the gathered rows returns it
+        means = row_gather_fanout_mean(feats, levels[-1], fanout).to(feats.dtype)
+        gathered.append(means)
+        return self.encode_gathered(levels, gathered, last_reduced_fanout=fanout)
+
+    def encode_gathered(
+        self,
+        levels: List[torch.Tensor],
+        level_feats: List[Optional[torch.Tensor]],
+        last_reduced_fanout: Optional[int] = None,
+    ) -> torch.Tensor:
+        """As ``encode`` but with each level's feature rows already gathered.
+
+        ``last_reduced_fanout``: set when the deepest level arrives
+        pre-summarized per root (``(n_roots, D)`` instead of
+        ``(n_roots·fanout, D)``); the first pass's deepest pairing then goes
+        through ``combine_from_summary``."""
+        if len(levels) != len(self.layer_specs) + 1:
+            raise ValueError(
+                f"need {len(self.layer_specs) + 1} tree levels, got {len(levels)}")
+        h = [self.prep(ids, x) for ids, x in zip(levels, level_feats)]
+        for li, agg in enumerate(self.agg_layers):
+            nxt = []
+            for d in range(len(h) - 1):
+                n_self = h[d].shape[0]
+                if li == 0 and d == len(h) - 2 and last_reduced_fanout is not None:
+                    nxt.append(agg.combine_from_summary(h[d], h[d + 1], last_reduced_fanout))
+                    continue
+                x_neigh = h[d + 1].reshape(n_self, -1, h[d + 1].shape[-1])
+                nxt.append(agg(h[d], x_neigh))
+            h = nxt
+        out = h[0]
+        if self.normalize:
+            out = _l2_normalize(out)
+        return out
+
+    def forward(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.fc(self.encode(levels, feats))
+
+    def fanouts(self, train: bool) -> Tuple[int, ...]:
+        return tuple(
+            (s.n_train_samples if train else s.n_val_samples) for s in self.layer_specs
+        )
+
+    def forward_with_sampling(
+        self,
+        graph_adj: torch.Tensor,
+        graph_degrees: torch.Tensor,
+        ids: torch.Tensor,
+        feats: Optional[torch.Tensor],
+        train: bool,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """Sample the tree then run the network."""
+        levels = sample_tree(graph_adj, graph_degrees, ids, self.fanouts(train),
+                             generator=generator)
+        return self(levels, feats)
