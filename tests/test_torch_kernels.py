@@ -17,14 +17,17 @@ import torch
 from tpu_sage import ops as jops
 from tpu_sage.kernels.gather import gather_rows as j_gather_rows
 from tpu_sage.kernels.gather import gather_rows_bf16 as j_gather_rows_bf16
+from tpu_sage.kernels.gather import gather_rows_blockspec as j_gather_rows_blockspec
 from tpu_sage.kernels.gather_mean import gather_fanout_mean as j_fanout_mean
 from tpu_sage.kernels.mean_project import mean_project as j_mean_project
 from tpu_sage.kernels.select import select_columns_pallas
 from tpu_sage.sample.sampler import select_columns as j_select_columns
 from tpu_sage_torch import kernels, ops
 from tpu_sage_torch.kernels import _build
+from tpu_sage_torch.kernels import mean_project as mp
 from tpu_sage_torch.kernels.gather import gather_rows
-from tpu_sage_torch.kernels.gather_mean import gather_fanout_mean
+from tpu_sage_torch.kernels.gather_blockspec import gather_rows_blockspec
+from tpu_sage_torch.kernels.gather_mean import gather_fanout_mean, word_elements
 from tpu_sage_torch.kernels.mean_project import mean_project
 from tpu_sage_torch.kernels.select import select_columns
 
@@ -35,6 +38,15 @@ def _bf16_bits_torch(t):
 
 def _bf16_bits_jax(a):
     return np.asarray(a).view(np.int16)
+
+
+def _bf16_ulps(a_bits, b_bits):
+    """Distance in bf16 ulps between two arrays of bf16 bit patterns (int16):
+    the patterns mapped to a monotone integer line, -0 and +0 both 0."""
+    def line(bits):
+        bits = bits.astype(np.int32)
+        return np.where(bits < 0, -(bits & 0x7FFF), bits)
+    return np.abs(line(a_bits) - line(b_bits))
 
 
 def test_select_columns_matches_pallas_and_xla():
@@ -70,6 +82,36 @@ def test_gather_rows_bf16_matches_pallas_bitwise():
                               block_q=32, interpret=True)
     ours = gather_rows(torch.from_numpy(table).to(torch.bfloat16), torch.from_numpy(ids))
     np.testing.assert_array_equal(_bf16_bits_torch(ours), _bf16_bits_jax(want))
+
+
+@pytest.mark.parametrize("dtype", ["int32", "bfloat16"])
+def test_gather_rows_blockspec_matches_pallas_bitwise(dtype):
+    """Reference: JAX's gather_rows_blockspec in interpret mode (one row per
+    grid step), which runs on the CPU; bitwise for int32 and bf16 tables."""
+    rng = np.random.default_rng(8)
+    n, d, q = 120, 602 if dtype == "bfloat16" else 40, 37
+    ids = rng.integers(0, n, q).astype(np.int32)
+    if dtype == "int32":
+        table = rng.integers(-2**31, 2**31 - 1, (n, d)).astype(np.int32)
+        want = np.asarray(j_gather_rows_blockspec(jnp.asarray(table), jnp.asarray(ids),
+                                                  interpret=True))
+        ours = gather_rows_blockspec(torch.from_numpy(table), torch.from_numpy(ids))
+        assert ours.dtype == torch.int32
+        np.testing.assert_array_equal(ours.numpy(), want)
+    else:
+        table = rng.standard_normal((n, d)).astype(np.float32)
+        want = j_gather_rows_blockspec(jnp.asarray(table, jnp.bfloat16), jnp.asarray(ids),
+                                       interpret=True)
+        ours = gather_rows_blockspec(torch.from_numpy(table).to(torch.bfloat16),
+                                     torch.from_numpy(ids))
+        np.testing.assert_array_equal(_bf16_bits_torch(ours), _bf16_bits_jax(want))
+
+
+def test_gather_rows_blockspec_clamps_out_of_range_ids_like_gather_rows():
+    table = torch.arange(30, dtype=torch.int32).view(10, 3)
+    ids = torch.tensor([-1, -3, -10, -11, -30, 10, 11, 3, 0, 9], dtype=torch.int32)
+    np.testing.assert_array_equal(gather_rows_blockspec(table, ids).numpy(),
+                                  gather_rows(table, ids, "clamp").numpy())
 
 
 @pytest.mark.parametrize("form", ["plain", "masked"])
@@ -132,18 +174,104 @@ def test_mean_project_forward_and_grads_match_pallas():
 
 
 def test_mean_project_bf16_keeps_dtype_and_f32_accumulation():
+    """bf16 in, bf16 out; the mean is the f32 sum over j = 0, 1, ... divided
+    by F and rounded once to bf16, the product accumulates in f32 and rounds
+    once: within 1 bf16 ulp of that computed in f64 from the rounded mean."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.normal(size=(6, 25, 40)).astype(np.float32)).to(torch.bfloat16)
     w = torch.from_numpy(rng.normal(size=(40, 8)).astype(np.float32)).to(torch.bfloat16)
     out = mean_project(x, w)
     assert out.dtype == torch.bfloat16
-    exact = (x.double().mean(1) @ w.double()).float()
-    torch.testing.assert_close(out.float(), exact, rtol=8e-3, atol=8e-3)
+    meanx = (x.float().sum(1) / 25).to(torch.bfloat16)
+    exact = (meanx.double() @ w.double()).to(torch.bfloat16)
+    assert _bf16_ulps(_bf16_bits_torch(out), _bf16_bits_torch(exact)).max() <= 1
+    # the unrounded mean gives a different product: the rounding is the contract
+    unrounded = (x.double().mean(1) @ w.double()).to(torch.bfloat16)
+    assert not torch.equal(unrounded, out)
+
+
+@pytest.mark.parametrize("shape", [(24, 5, 16, 8), (37, 25, 602, 16), (9, 10, 256, 24)])
+def test_mean_project_bf16_rounds_the_mean_as_jax_does(shape):
+    """The port's bf16 mean_project against two JAX references on the same
+    inputs, within 1 bf16 ulp of each output: the Pallas kernel in interpret
+    mode, and jnp.mean (a bf16 result) followed by the dot with an f32
+    accumulator, rounded to bf16."""
+    b, f, d, o = shape
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(b, f, d)).astype(np.float32)
+    w = (rng.normal(size=(d, o)) / np.sqrt(d)).astype(np.float32)
+    jx, jw = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    pallas = j_mean_project(jx, jw, 8, True)
+    xla = jnp.dot(jnp.mean(jx, 1), jw, preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+    ours = mean_project(torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(w).to(torch.bfloat16))
+    assert ours.dtype == torch.bfloat16 and tuple(ours.shape) == (b, o)
+    for ref in (pallas, xla):
+        assert _bf16_ulps(_bf16_bits_torch(ours), _bf16_bits_jax(ref)).max() <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("needs", [(True, True), (False, True), (True, False)])
+def test_mean_project_backward_computes_only_the_grads_asked_for(dtype, needs):
+    """dx only when x requires grad, dW only when W does; the grads that are
+    computed are unchanged (the reference's VJP: dW = mean(x)^T g, dx = g W^T / F
+    broadcast over the fanout)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(6, 5, 12)).astype(np.float32)).to(dtype)
+    w = torch.from_numpy(rng.normal(size=(12, 8)).astype(np.float32)).to(dtype)
+    g = torch.from_numpy(rng.normal(size=(6, 8)).astype(np.float32)).to(dtype)
+    xa, wa = x.clone().requires_grad_(needs[0]), w.clone().requires_grad_(needs[1])
+    mean_project(xa, wa).backward(g)
+    if needs[0]:
+        want = ((g @ w.t()) / 5).unsqueeze(1).expand_as(x)
+        assert torch.equal(xa.grad, want)
+    else:
+        assert xa.grad is None
+    if needs[1]:
+        assert torch.equal(wa.grad, x.mean(dim=1).t() @ g)
+    else:
+        assert wa.grad is None
+
+
+def test_mean_project_bf16_plan_at_main_path_shapes():
+    """The bf16 kernel's launch shape: 16-byte cp.async words for an aligned x
+    (a block's tile at D = 602 is 120,400 bytes), 4-byte words for an x
+    offset by 4 bytes, every W chunk resident beside the x ring, and shared
+    memory within a Hopper block's 232,448 bytes."""
+    layer0 = mp.bf16_plan(25, 602, 128, 1 << 20)
+    assert layer0["word"] == 16 and layer0["g_rows"] == 12 and layer0["n_wbufs"] == 10
+    assert layer0["smem"] <= 232_448
+    assert mp.bf16_plan(25, 602, 128, (1 << 20) + 4)["word"] == 4
+    assert mp.bf16_plan(25, 602, 128, (1 << 20) + 8)["word"] == 8
+    layer1 = mp.bf16_plan(25, 256, 128, 1 << 20)
+    assert layer1["word"] == 16 and layer1["g_rows"] == 32 and layer1["n_wbufs"] == 4
+    for d, o in ((602, 128), (256, 128), (602, 256), (2048, 512), (7, 3)):
+        plan = mp.bf16_plan(10, d, o, 1 << 20)
+        assert (plan["g_rows"] * d * 2) % 16 == 0 and plan["o_pad"] >= max(o, 16)
+        assert plan["o_pad"] & (plan["o_pad"] - 1) == 0
+        assert 1 <= plan["n_wbufs"] <= -(-d // 64) and plan["smem"] <= 232_448
+    assert mp.bf16_plan(10, 602, 256, 1 << 20)["n_wbufs"] < 10  # W chunks form a ring
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        mp.bf16_plan(25, 602, 128, (1 << 20) + 2)
+    with pytest.raises(ValueError, match="D <= 2048"):
+        mp.bf16_plan(25, 4096, 128, 1 << 20)
+    with pytest.raises(ValueError, match="do not fit in shared memory"):
+        mp.bf16_plan(25, 2048, 1024, 1 << 20)
+
+
+def test_gather_fanout_mean_word_width():
+    """bf16 rows move in the widest word dividing the row and the address: a
+    602-wide row as bf16x2 words; f32 rows as 8-byte words."""
+    assert word_elements(torch.zeros(4, 602, dtype=torch.bfloat16)) == 2
+    assert word_elements(torch.zeros(4, 256, dtype=torch.bfloat16)) == 8
+    assert word_elements(torch.zeros(4, 602)) == 2
+    assert word_elements(torch.zeros(4, 7)) == 1
+    assert word_elements(torch.zeros(4 * 602 + 1, dtype=torch.bfloat16)[1:].view(4, 602)) == 1
 
 
 @pytest.mark.parametrize("call", [
     lambda t: select_columns(t.int(), t[:, :2].int()),
     lambda t: gather_rows(t, torch.zeros(2, dtype=torch.int32, device=t.device)),
+    lambda t: gather_rows_blockspec(t, torch.zeros(2, dtype=torch.int32, device=t.device)),
     lambda t: gather_fanout_mean(t, torch.zeros(2, dtype=torch.int32, device=t.device), 2),
     lambda t: mean_project(t.view(2, 2, 4), torch.zeros(4, 3, device=t.device)),
 ])
@@ -171,16 +299,32 @@ def test_plain_versions_do_not_count_as_launches():
     kernels.reset_launch_counts()
     select_columns(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 1, dtype=torch.int32))
     gather_rows(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32))
+    gather_rows_blockspec(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32))
+    gather_fanout_mean(torch.zeros(3, 2), torch.zeros(2, dtype=torch.int32), 2)
+    mean_project(torch.zeros(2, 2, 4, dtype=torch.bfloat16), torch.zeros(4, 3, dtype=torch.bfloat16))
+    assert "gather_rows_blockspec" in kernels.KERNEL_MODULES
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNEL_MODULES}
 
 
 def test_every_kernel_source_notes_what_it_replaces_and_its_bound():
-    for name, replaced in [("select", "select_columns_pallas"), ("gather", "gather_rows"),
-                           ("gather_mean", "gather_fanout_mean"),
-                           ("mean_project", "mean_project")]:
+    for name, replaced, entry in [
+            ("select", "select_columns_pallas", "tsg_select_columns("),
+            ("gather", "gather_rows", "tsg_gather_rows("),
+            ("gather", "gather_rows_blockspec", "tsg_gather_rows_blockspec("),
+            ("gather_mean", "gather_fanout_mean", "tsg_gather_fanout_mean("),
+            ("mean_project", "mean_project", "tsg_mean_project_bf16(")]:
         src, lib = _build.library_path(name)
         text = open(src).read()
         assert f"tpu_sage/kernels/{name}.py::{replaced}" in text
         assert "Bound on the H100: bytes" in text
-        assert 'extern "C" int tsg_' in text and "cudaGetLastError()" in text
+        assert f'extern "C" int {entry}' in text and "cudaGetLastError()" in text
         assert lib.startswith(_build.BUILD_DIR) and os.path.basename(lib).startswith(f"lib{name}_")
+    assert set(_build.SOURCES) == {"select", "gather", "gather_mean", "mean_project"}
+
+
+def test_mean_project_source_streams_x_asynchronously_and_uses_tensor_cores():
+    text = open(_build.library_path("mean_project")[0]).read()
+    for needle in ("cp.async.bulk.shared", "mbarrier.try_wait", "cp.async.cg.shared.global",
+                   "cp.async.ca.shared.global [%0], [%1], 4;",
+                   "ldmatrix.sync.aligned.m8n8.x4.trans", "mma.sync.aligned.m16n8k16"):
+        assert needle in text, needle

@@ -2,8 +2,7 @@
 
 The flax parameters are carried over with ``load_flax_params``; logits and
 parameter gradients must agree in f32, and within bf16 tolerance in bf16
-(the port's ``mean_project`` keeps the neighbor mean in f32 before the
-product where JAX rounds it to bf16).
+(both sides round the neighbor mean to bf16 before the product).
 """
 
 import jax
@@ -80,12 +79,17 @@ def test_f32_logits_and_grads_match_flax(combine, fuse_last):
 @pytest.mark.parametrize("combine", ["concat", "add"])
 @pytest.mark.parametrize("fuse_last", ["auto", "off"])
 def test_bf16_logits_and_grads_within_bf16_tolerance(combine, fuse_last):
+    """Logits within 6e-3 of their scale (measured 3.4e-3 to 4.0e-3 with the
+    neighbor mean rounded to bf16 as JAX rounds it; 6.1e-3 to 6.8e-3 with it
+    kept in f32), gradients within 1.5e-2 of theirs (measured up to 1.2e-2):
+    the two frameworks still round the self branch, the concat and the
+    normalize at different places."""
     jlogits, tlogits, jgrads, tgrads = _run_both(combine, fuse_last, "bfloat16")
     scale = np.abs(jlogits).max()
-    np.testing.assert_allclose(tlogits, jlogits, rtol=0, atol=3e-2 * scale)
+    np.testing.assert_allclose(tlogits, jlogits, rtol=0, atol=6e-3 * scale)
     for k in jgrads:
         g = np.abs(jgrads[k]).max()
-        np.testing.assert_allclose(tgrads[k], jgrads[k], rtol=0, atol=3e-2 * g, err_msg=k)
+        np.testing.assert_allclose(tgrads[k], jgrads[k], rtol=0, atol=1.5e-2 * g, err_msg=k)
 
 
 def test_bf16_logits_dtype_follows_flax_dense():

@@ -69,3 +69,54 @@ extern "C" int tsg_gather_rows(const void* table, const void* ids, void* out,
   }
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Row gather, one row per block: the measurement foil.
+//
+// Replaces tpu_sage/kernels/gather.py::gather_rows_blockspec, the index-map
+// formulation that copies one row per grid step (its issue rate bounded by
+// grid-step overhead), which the JAX package keeps only as a baseline for
+// gather_rows. Its counterpart here is the same naive shape: one block of
+// 128 threads per output row, walking the row in words of the width the
+// caller picks (as for gather_rows). Bound on the H100: bytes, as for
+// gather_rows; the design keeps one row per block on purpose, so a block's
+// launch and retirement, not the bytes, set its rate, as the grid step does
+// on the TPU. Out-of-range ids clamp as gather_rows's "clamp" form does
+// (a negative id wraps once by n, then clamps to [0, n)), so no id reads
+// outside the table.
+
+template <typename W>
+__global__ void gather_rows_blockspec_kernel(const W* __restrict__ table,
+                                             const int32_t* __restrict__ ids,
+                                             W* __restrict__ out, int64_t n_table,
+                                             int64_t row_words) {
+  const int64_t row = blockIdx.x;
+  int64_t id = ids[row];
+  if (id < 0) id += n_table;
+  id = id < 0 ? 0 : (id >= n_table ? n_table - 1 : id);
+  const W* src = table + id * row_words;
+  W* dst = out + row * row_words;
+  for (int64_t j = threadIdx.x; j < row_words; j += blockDim.x) dst[j] = src[j];
+}
+
+template <typename W>
+static void launch_blockspec(const void* table, const void* ids, void* out, int64_t n_table,
+                             int64_t q, int64_t row_words, cudaStream_t stream) {
+  gather_rows_blockspec_kernel<W><<<(unsigned)q, 128, 0, stream>>>(
+      (const W*)table, (const int32_t*)ids, (W*)out, n_table, row_words);
+}
+
+extern "C" int tsg_gather_rows_blockspec(const void* table, const void* ids, void* out,
+                                         long long n_table, long long q, long long row_bytes,
+                                         int word_bytes, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t words = row_bytes / word_bytes;
+  switch (word_bytes) {
+    case 16: launch_blockspec<uint4>(table, ids, out, n_table, q, words, s); break;
+    case 4: launch_blockspec<uint32_t>(table, ids, out, n_table, q, words, s); break;
+    case 2: launch_blockspec<uint16_t>(table, ids, out, n_table, q, words, s); break;
+    case 1: launch_blockspec<uint8_t>(table, ids, out, n_table, q, words, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -24,8 +24,9 @@ LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_count
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_SIGNATURES = {
+_SIGNATURES = {  # both entry points of csrc/gather.cu (gather_blockspec uses the second)
     "tsg_gather_rows": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int, _P),
+    "tsg_gather_rows_blockspec": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
 }
 _OOB = {"clamp": 0, "zero": 1}
 

@@ -23,16 +23,30 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tsg_gather_fanout_mean": (_P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _P),
+                               ctypes.c_int, ctypes.c_int, _P),
 }
 
 
+def word_elements(table: torch.Tensor) -> int:
+    """Elements per word the kernel reads a row in: the widest (bf16: 8, 4,
+    2, 1; f32: 2, 1) that divides the row width and the table's address in
+    bytes. A 602-wide bf16 row moves as 301 bf16x2 words."""
+    d, size = table.shape[1], table.element_size()
+    for v in ((8, 4, 2) if size == 2 else (2,)):
+        if d % v == 0 and table.data_ptr() % (v * size) == 0:
+            return v
+    return 1
+
+
 def fanout_sum_mean(x: torch.Tensor) -> torch.Tensor:
-    """f32 mean over axis 1 of ``(R, F, d)``, summed in order j = 0, 1, ..."""
+    """f32 mean over axis 1 of ``(R, F, d)``, summed in order j = 0, 1, ...,
+    then divided by F. The divisor is a tensor: PyTorch turns a division by a
+    Python scalar into a product with its reciprocal on the card, which is
+    not always the correctly rounded quotient the kernels compute."""
     acc = x[:, 0].float()
     for j in range(1, x.shape[1]):
         acc = acc + x[:, j].float()
-    return acc / x.shape[1]
+    return acc / torch.full_like(acc, x.shape[1])
 
 
 def gather_fanout_mean_reference(table: torch.Tensor, ids: torch.Tensor,
@@ -62,6 +76,7 @@ def gather_fanout_mean(table: torch.Tensor, ids: torch.Tensor, fanout: int) -> t
         raise ValueError("cannot gather from an empty table")
     lib = library("gather_mean", _SIGNATURES)
     launch(lib.tsg_gather_fanout_mean, table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, r,
-           d, fanout, int(table.dtype == torch.bfloat16), device=table.device)
+           d, fanout, int(table.dtype == torch.bfloat16), word_elements(table),
+           device=table.device)
     LAUNCHES += 1
     return out

@@ -1,11 +1,23 @@
 """Fanout mean + projection: ``out = mean(x, axis=1) @ W``.
 
 Counterpart of ``tpu_sage/kernels/mean_project.py::mean_project``: ``x (B, F,
-D)`` and ``W (D, O)`` of one dtype (bf16 or f32), an f32 accumulator, output
-in ``x.dtype``. The forward on a CUDA tensor launches ``csrc/mean_project.cu``;
-on a CPU tensor it runs ``mean_project_reference``. The backward is the
-reference's (computed outside Pallas there too), two plain products with
-``meanx`` recomputed::
+D)`` and ``W (D, O)`` of one dtype (bf16 or f32), output in ``x.dtype``. The
+contract is the reference's, rounding included::
+
+    out = to(x.dtype)( to(x.dtype)(mean_f32(x, axis=1)) @ W )
+
+the mean summed in f32 in the order j = 0, 1, ..., divided by F and rounded
+once to ``x.dtype`` (as ``jnp.mean`` of a bf16 tile returns it), the product
+accumulated in f32 and rounded once. For f32 both roundings are no-ops.
+
+The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16: x
+streamed into shared memory with bulk asynchronous copies, or ``cp.async``
+words when it is not 16-byte aligned, and the product on the tensor cores;
+f32: exact f32 on the SIMT units); on a CPU tensor it runs
+``mean_project_reference``.
+The backward is the reference's (computed outside Pallas there too), two
+plain products with ``meanx`` recomputed, each only when its input needs a
+gradient::
 
     dW = meanx^T @ g
     dx = broadcast(g @ W^T) / F
@@ -14,6 +26,7 @@ reference's (computed outside Pallas there too), two plain products with
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -23,22 +36,66 @@ from tpu_sage_torch.kernels.gather_mean import fanout_sum_mean
 LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
 _SIGNATURES = {
-    "tsg_mean_project": (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int, ctypes.c_int, _P),
+    "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
+    "tsg_mean_project_f32": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 _MAX_SMEM_BYTES = 232_448  # per-block shared memory on Hopper
 
+# the bf16 kernel's compile-time shape (csrc/mean_project.cu)
+_TB, _STAGES, _KC, _BAR_BYTES = 4, 4, 64, 128
+_MAX_D, _MAX_O = 2048, 1024
+_STAGE_TARGET_BYTES, _MAX_STAGE_ROWS = 16384, 32
 
-def kernel_smem_bytes(d: int, o: int) -> int:
-    """Shared memory the kernel's block takes: the f32 (4, D) mean tile and
+
+def _ceil(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+def bf16_plan(f: int, d: int, o: int, x_ptr: int) -> dict:
+    """Launch shape of the bf16 kernel for ``x (B, f, d)`` at address
+    ``x_ptr`` and ``W (d, o)``: the copy word for x (16 bytes, a bulk copy
+    per stage, when it divides the address and a block's tile of ``4·f·d·2``
+    bytes, else 8- or 4-byte cp.async words), the x rows per ring stage
+    (``16`` divides a stage's bytes, at most 16 KB), W's columns padded to a
+    power of two ``o_pad``, the number of W chunk buffers that fit beside the
+    ring, and the shared memory. Raises for what the kernel does not take."""
+    if d > _MAX_D or o > _MAX_O:
+        raise ValueError(f"mean_project bf16 kernel takes D <= {_MAX_D} and O <= {_MAX_O}, "
+                         f"got D={d}, O={o}")
+    tile = _TB * f * d * 2
+    word = next((w for w in (16, 8, 4) if x_ptr % w == 0 and tile % w == 0), None)
+    if word is None:
+        raise ValueError("mean_project bf16 kernel needs x 4-byte aligned")
+    step = 16 // math.gcd(2 * d, 16)  # fewest rows whose bytes 16 divides
+    g_rows = max(step, min(_MAX_STAGE_ROWS, _STAGE_TARGET_BYTES // (2 * d)) // step * step)
+    o_pad = max(16, 1 << (o - 1).bit_length())
+    fixed = (_BAR_BYTES + _TB * _ceil(d, 16) * 2 + 32 * o_pad
+             + _STAGES * _ceil(g_rows * d * 2, 16))
+    n_chunks = -(-d // _KC)
+    if fixed + d * 2 * o_pad <= _MAX_SMEM_BYTES:  # all of W resident
+        n_wbufs, w_bytes = n_chunks, d * 2 * o_pad
+    else:  # W chunks in a ring of buffers
+        n_wbufs = (_MAX_SMEM_BYTES - fixed) // (_KC * 2 * o_pad)
+        w_bytes = n_wbufs * _KC * 2 * o_pad
+    if n_wbufs < 1:
+        raise ValueError(f"mean_project bf16 kernel: D={d}, O={o} do not fit in shared memory")
+    return dict(word=word, g_rows=g_rows, o_pad=o_pad, n_wbufs=n_wbufs, smem=fixed + w_bytes)
+
+
+def f32_smem_bytes(d: int, o: int) -> int:
+    """Shared memory of the f32 kernel's block: the f32 (4, D) mean tile and
     8 warps' f32 (4, O) partial products."""
     return 4 * (4 * d + 8 * 4 * o)
 
 
 def mean_project_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the forward: f32 mean, f32 product, cast."""
-    return (fanout_sum_mean(x) @ w.float()).to(x.dtype)
+    """Plain PyTorch version of the forward: f32 mean rounded to ``x.dtype``,
+    f32 product, rounded to ``x.dtype``."""
+    meanx = fanout_sum_mean(x).to(x.dtype)
+    return (meanx.float() @ w.float()).to(x.dtype)
 
 
 def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -53,17 +110,31 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if w.shape[0] != d:
         raise ValueError(f"w has {w.shape[0]} rows, x has width {d}")
     o = w.shape[1]
-    if kernel_smem_bytes(d, o) > _MAX_SMEM_BYTES:
-        raise ValueError(f"mean_project kernel: D={d}, O={o} need {kernel_smem_bytes(d, o)} "
-                         f"bytes of shared memory, more than {_MAX_SMEM_BYTES}")
-    out = torch.empty((b, o), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
-        return out
     lib = library("mean_project", _SIGNATURES)
-    launch(lib.tsg_mean_project, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o,
-           int(x.dtype == torch.bfloat16), device=x.device)
+    if x.dtype == torch.float32:
+        if f32_smem_bytes(d, o) > _MAX_SMEM_BYTES:
+            raise ValueError(f"mean_project f32 kernel: D={d}, O={o} need "
+                             f"{f32_smem_bytes(d, o)} bytes of shared memory, more than "
+                             f"{_MAX_SMEM_BYTES}")
+        out = torch.empty((b, o), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        launch(lib.tsg_mean_project_f32, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o,
+               device=x.device)
+        LAUNCHES += 1
+        return out
+    if b == 0 or o == 0:
+        return torch.empty((b, o), dtype=x.dtype, device=x.device)
+    plan = bf16_plan(f, d, o, x.data_ptr())
+    o_pad = plan["o_pad"]
+    if o_pad != o or w.data_ptr() % 16:
+        # the kernel reads W rows of o_pad columns from a 16-byte-aligned base
+        w = torch.nn.functional.pad(w, (0, o_pad - o))
+    out = torch.empty((b, o_pad), dtype=x.dtype, device=x.device)
+    launch(lib.tsg_mean_project_bf16, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o_pad,
+           plan["word"], plan["g_rows"], plan["n_wbufs"], plan["smem"], device=x.device)
     LAUNCHES += 1
-    return out
+    return out if o_pad == o else out[:, :o].contiguous()
 
 
 class _MeanProject(torch.autograd.Function):
@@ -77,10 +148,11 @@ class _MeanProject(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        meanx = x.mean(dim=1)
-        dw = meanx.t() @ g
-        dmean = g @ w.t()
-        dx = (dmean / x.shape[1]).unsqueeze(1).expand_as(x)
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = x.mean(dim=1).t() @ g
+        if ctx.needs_input_grad[0]:
+            dx = ((g @ w.t()) / x.shape[1]).unsqueeze(1).expand_as(x)
         return dx, dw
 
 
