@@ -8,15 +8,20 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the five kernels from
+2. build: compiles the CUDA sources of the six kernels from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
-   shapes the main path gives it (sampler hops, feature gathers, deepest
-   fanout mean, both layers' mean + projection and one at an x offset by 4
-   bytes, forward and backward), and the ``gather_rows_blockspec`` foil at
-   the six gather shapes, and times kernel, plain version and one PyTorch
-   library call with CUDA events, L2-cold (``tpu_sage_torch.bench.timing``);
+   shapes its path gives it (both fused sampler hops, the feature gathers,
+   deepest fanout mean, both layers' mean + projection and one at an x
+   offset by 4 bytes, forward and backward; the packed sampler's gathers and
+   selects; the degree and adjacency gathers the hops used to launch), and
+   the ``gather_rows_blockspec`` foil at the six gather shapes, and times
+   kernel, plain version and one PyTorch library call with CUDA events,
+   L2-cold (``tpu_sage_torch.bench.timing``); then edge cases (every
+   realignment shift of ``gather_rows``, out-of-range ids, degree 0) and the
+   packed sampler (``sample_tree_packed``) at full width, bitwise against
+   ``sample_tree`` with the same uniforms and with its own launch counts;
 4. reference: one full-width forward (232,965 × 602 Reddit-shaped store,
    bf16, injected levels, the same flax-layout params) on the card against
    the same forward on the CPU with the plain versions, and three f32 train
@@ -43,8 +48,9 @@ BATCH, FANOUTS, DIMS = 512, (25, 10), (128, 128)
 TRAIN_STEPS, WARMUP_STEPS, PROFILE_STEPS = 30, 3, 5
 MEAN_PROJECT_TOL = (2.0 ** -7, 1e-4)  # rtol (one bf16 ulp), atol as a share of the output's scale
 EVAL_NODES = 4096
-PER_STEP = {"select_columns": 2, "gather_rows": 6, "gather_rows_blockspec": 0,
+PER_STEP = {"select_columns": 0, "sample_hop": 2, "gather_rows": 2, "gather_rows_blockspec": 0,
             "gather_fanout_mean": 1, "mean_project": 2}
+SHIFT_ROWS = 4096  # rows of the small tables that check every realignment shift
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -55,6 +61,9 @@ PEAKS = {
 SOURCES = {
     "select_columns": ("tpu_sage_torch/kernels/csrc/select.cu",
                        "tpu_sage/kernels/select.py:29"),
+    "sample_hop": ("tpu_sage_torch/kernels/csrc/select.cu",
+                   "tpu_sage/kernels/select.py:29 with the hop gathers of "
+                   "tpu_sage/sample/sampler.py:55-60"),
     "gather_rows": ("tpu_sage_torch/kernels/csrc/gather.cu",
                     "tpu_sage/kernels/gather.py:64"),
     "gather_rows_blockspec": ("tpu_sage_torch/kernels/csrc/gather.cu",
@@ -70,14 +79,52 @@ def log(*args):
     print(*args, flush=True)
 
 
+def ptxas_report(path):
+    """'kernel<template arguments, mangled>: N registers, S B spilled' for each
+    entry function of an nvcc -Xptxas -v log."""
+    import re
+
+    report, name, spill = [], "?", 0
+    with open(path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '_Z(\w+)'", ln)
+            if m:
+                name = kernel_name(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m:
+                spill = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                report.append(f"{name}: {m.group(1)} registers, {spill} B spilled")
+    return report
+
+
+def kernel_name(mangled):
+    """The function's own name and its template arguments from an Itanium
+    mangled name without its '_Z' (namespaces dropped)."""
+    i, nested, name = 0, mangled.startswith("N"), "?"
+    i += nested
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+        if not nested:
+            break
+    rest = mangled[i:]
+    return name + (f"<{rest[1:rest.index('E')]}>" if rest.startswith("I") else "")
+
+
 def phase_kernels(torch, np, graph, levels, peaks):
     """Phase 3: each kernel against its plain version at main-path shapes."""
     from tpu_sage_torch.bench.timing import cuda_ms
-    from tpu_sage_torch.kernels import gather, gather_blockspec, gather_mean, mean_project, select
+    from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
+                                        sample_hop, select)
+    from tpu_sage_torch.sample.sampler import pack_adjacency
 
     bw, bf16_peak, f32_peak = peaks
     feats, adj, deg = graph.feats, graph.adj, graph.degrees
-    n = adj.shape[0]
+    n, max_degree = adj.shape
     l0, l1, l2 = levels
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = []
@@ -91,37 +138,64 @@ def phase_kernels(torch, np, graph, levels, peaks):
                           library_fn=library_fn, bytes=float(nbytes), flops=float(flops),
                           peak=peak, tol=tol, weight=weight))
 
-    # select: hop 1 (512 x 25 of 128) and hop 2 (12800 x 10 of 128)
+    # sampler hops, fused: hop 1 (512 ids x 25) and hop 2 (12,800 ids x 10)
+    # on the train graph. Bytes: the ids, each distinct 32-byte degree sector,
+    # each distinct 32-byte adjacency sector the picks hit, u and out. The
+    # library yardstick is one advanced-indexing call adj[ids, cols] with the
+    # columns precomputed: it leaves out the degree gather and the column
+    # arithmetic that the kernel also does.
+    hops = []
     for ids, f in ((l0, FANOUTS[0]), (l1, FANOUTS[1])):
-        rows = adj[ids.long()]
-        d = deg[ids.long()].clamp_min(1)
+        ids64 = ids.long()
         u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
-        cols = torch.minimum((u * d[:, None].float()).int(), d[:, None] - 1).contiguous()
+        cols64 = sample_hop.hop_columns(u, deg[ids64].clamp_min(1)).long()
+        adj_sectors = distinct((ids64[:, None] * max_degree + cols64) // 8)
+        add("sample_hop", f"ids ({ids.shape[0]},), u {tuple(u.shape)}, adj {tuple(adj.shape)}",
+            lambda i=ids, u=u: sample_hop.sample_hop(adj, deg, i, u),
+            lambda i=ids, u=u: sample_hop.sample_hop_reference(adj, deg, i, u),
+            lambda i=ids64, c=cols64: adj[i[:, None], c],
+            4 * ids.shape[0] + 32 * distinct(ids64 // 8) + 32 * adj_sectors + 8 * u.numel())
+        hops.append((ids, u))
+
+    # select: the packed sampler's two hops (the kernel's only path), on the
+    # adjacency part of the gathered adjacency ‖ degree rows, a view with a
+    # row stride of max_degree + 1
+    packed = pack_adjacency(adj, deg)
+    for ids, u in hops:
+        rows = packed[ids.long()][:, :-1]
+        cols = sample_hop.hop_columns(u, deg[ids.long()].clamp_min(1)).contiguous()
         cols64 = cols.long()
-        sectors = torch.unique(
-            (torch.arange(rows.shape[0], device="cuda")[:, None] * rows.shape[1] + cols64) // 8)
-        add("select_columns", f"rows int32 {tuple(rows.shape)}, cols {tuple(cols.shape)}",
+        sectors = distinct(
+            (torch.arange(rows.shape[0], device="cuda")[:, None] * rows.stride(0) + cols64) // 8)
+        add("select_columns", f"rows int32 {tuple(rows.shape)} (row stride {rows.stride(0)}), "
+            f"cols {tuple(cols.shape)}",
             lambda r=rows, c=cols: select.select_columns(r, c),
             lambda r=rows, c=cols: select.select_columns_reference(r, c),
             lambda r=rows, c=cols64: torch.gather(r, 1, c),
-            32 * sectors.numel() + 8 * cols.numel())
+            32 * sectors + 8 * cols.numel())
 
-    # gather: degrees, adjacency rows and feature rows at q = 512 and 12800;
-    # the one-row-per-block foil at the same six cases
+    # gather: feature rows (the main path's two launches), the degree and
+    # adjacency rows the hops gathered before sample_hop, at q = 512 and
+    # 12,800; the one-row-per-block foil at the same six cases; and the
+    # packed sampler's 516-byte rows
     deg2 = deg.view(-1, 1)
     for ids in (l0, l1):
         q, ids64, nd = ids.shape[0], ids.long(), distinct(ids)
-        for name, tab in (("degrees int32", deg2), ("adjacency int32", adj), ("feats bf16", feats)):
+        for name, tab, weight in (("degrees int32", deg2, 0), ("adjacency int32", adj, 0),
+                                  ("feats bf16", feats, 1),
+                                  ("packed adjacency ‖ degree int32", packed, 0)):
             row = tab.shape[1] * tab.element_size()
             for kernel, fn, ref in (
                     ("gather_rows", gather.gather_rows, gather.gather_rows_reference),
                     ("gather_rows_blockspec", gather_blockspec.gather_rows_blockspec,
                      gather_blockspec.gather_rows_blockspec_reference)):
+                if kernel == "gather_rows_blockspec" and tab is packed:
+                    continue
                 add(kernel, f"{name} {tuple(tab.shape)} q={q}",
                     lambda t=tab, i=ids, k=fn: k(t, i),
                     lambda t=tab, i=ids, k=ref: k(t, i),
                     lambda t=tab, i=ids64: t[i],
-                    4 * q + nd * row + q * row)
+                    4 * q + nd * row + q * row, weight=weight)
 
     # fanout mean: deepest level, 128,000 ids, F = 10 -> (12800, 602) f32
     f = FANOUTS[1]
@@ -199,6 +273,8 @@ def phase_kernels(torch, np, graph, levels, peaks):
     if not torch.equal(gather_blockspec.gather_rows_blockspec(feats, ids_oob),
                        gather_blockspec.gather_rows_blockspec_reference(feats, ids_oob)):
         raise AssertionError("gather_rows_blockspec differs on out-of-range ids")
+    check_gather_shifts(torch, gather, gen)
+    check_sample_hop_edges(torch, sample_hop, gen)
     rows = adj[l0.long()]
     cols_oob = torch.randint(-3, rows.shape[1] + 3, (rows.shape[0], 25), generator=gen,
                              device="cuda", dtype=torch.int32)
@@ -231,9 +307,97 @@ def phase_kernels(torch, np, graph, levels, peaks):
             torch.testing.assert_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
                                        msg=lambda m, k=k: f"mean_project {dtype} {k}: {m}")
     torch.cuda.synchronize()
-    log("  out-of-range ids/cols, f32 fanout mean (bitwise), ragged mean_project with a W "
-        "ring, mean_project backward (bf16, f32): ok")
+    log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8), "
+        "sample_hop at degree 0 and u near 1, f32 fanout mean (bitwise), ragged mean_project "
+        "with a W ring, mean_project backward (bf16, f32): ok")
     return results
+
+
+def check_gather_shifts(torch, gather, gen):
+    """gather_rows bitwise at every realignment shift: bf16, f32 and int8
+    tables of 1,204-byte rows (and int8 rows of 601 bytes, the 1-byte word
+    form) whose base and whose output's base each lie 0, 4, 8 or 12 bytes
+    past a 16-byte boundary, with ids naming the table's first and last rows
+    and ids out of range in both forms. The bytes around the output must
+    stay as they were."""
+    n = SHIFT_ROWS
+    ids = torch.cat([torch.tensor([0, n - 1, -n - 5, -1, n, n + 7], device="cuda"),
+                     torch.randint(0, n, (506,), generator=gen, device="cuda")]).int()
+    q = ids.shape[0]
+    for dtype, width in ((torch.bfloat16, 602), (torch.float32, 301), (torch.int8, 1204),
+                         (torch.int8, 601)):
+        size = torch.tensor([], dtype=dtype).element_size()
+        pad = 16 // size
+        if dtype == torch.int8:
+            src = torch.randint(-128, 128, (n * width + pad,), generator=gen, device="cuda",
+                                dtype=torch.int8)
+        else:
+            src = torch.randn((n * width + pad,), generator=gen, device="cuda").to(dtype)
+        buf = torch.empty((q * width + pad,), dtype=dtype, device="cuda")
+        for t_off in (0, 4, 8, 12):
+            table = src[t_off // size:t_off // size + n * width].view(n, width)
+            for o_off in (0, 4, 8, 12):
+                out = buf[o_off // size:o_off // size + q * width].view(q, width)
+                assert table.data_ptr() % 16 == t_off and out.data_ptr() % 16 == o_off
+                for oob in ("clamp", "zero"):
+                    buf.fill_(7)
+                    gather.gather_rows_into(table, ids, out, oob)
+                    around = torch.cat([buf[:o_off // size], buf[o_off // size + q * width:]])
+                    if not (torch.equal(out, gather.gather_rows_reference(table, ids, oob))
+                            and bool((around == 7).all())):
+                        raise AssertionError(
+                            f"gather_rows {dtype} ({n}, {width}) table +{t_off} B, out "
+                            f"+{o_off} B, oob={oob}: differs from its plain version or wrote "
+                            f"outside its output")
+
+
+def check_sample_hop_edges(torch, sample_hop, gen):
+    """sample_hop bitwise against its plain version where the train graph
+    never goes: degree 0 (column 0, the self pad), degree 1, degrees above the
+    row width (a column >= D gives 0), u = 0 and u one ulp below 1, and ids
+    out of range (the plain form)."""
+    n, d, b, k = 1000, 128, 4096, 25
+    adj = torch.randint(0, n, (n, d), generator=gen, device="cuda", dtype=torch.int32)
+    deg = torch.randint(0, d + 9, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    deg[:50], deg[50:100] = 0, 1
+    ids = torch.randint(-n - 3, n + 3, (b,), generator=gen, device="cuda", dtype=torch.int32)
+    u = torch.rand((b, k), generator=gen, device="cuda")
+    u[:, 0], u[:, 1] = 0.0, 1.0 - 2.0 ** -24
+    if not torch.equal(sample_hop.sample_hop(adj, deg, ids, u),
+                       sample_hop.sample_hop_reference(adj, deg, ids, u)):
+        raise AssertionError("sample_hop differs from its plain version at its edge cases")
+
+
+def check_packed_sampler(torch, graph, roots):
+    """sample_tree_packed at full width against sample_tree with the same
+    per-hop uniforms, bitwise, each with its own launch counts: the fused
+    hop launches sample_hop once per hop; the packed hop one gather_rows of
+    516-byte rows and one select_columns."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.sample.sampler import pack_adjacency, sample_tree, sample_tree_packed
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    us, q = [], roots.shape[0]
+    for f in FANOUTS:
+        us.append(torch.rand((q, f), generator=gen, device="cuda"))
+        q *= f
+    packed = pack_adjacency(graph.adj, graph.degrees)
+    want = {name: 0 for name in kernels.KERNEL_MODULES}
+    trees, counts = [], []
+    for fn, args in ((sample_tree, (graph.adj, graph.degrees)), (sample_tree_packed, (packed,))):
+        kernels.reset_launch_counts()
+        trees.append(fn(*args, roots, FANOUTS, us=us))
+        torch.cuda.synchronize()
+        counts.append(kernels.launch_counts())
+    hops = len(FANOUTS)
+    if counts != [{**want, "sample_hop": hops},
+                  {**want, "gather_rows": hops, "select_columns": hops}]:
+        raise AssertionError(f"sampler launch counts {counts}")
+    for level, (a, b) in enumerate(zip(*trees)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"sample_tree_packed differs from sample_tree at level {level}")
+    log(f"  sample_tree_packed {[tuple(t.shape) for t in trees[1]]} bitwise equal to "
+        f"sample_tree; launches per tree: fused {counts[0]}, packed {counts[1]}")
 
 
 def phase_reference(torch, np, store, levels_cuda):
@@ -412,9 +576,7 @@ def main() -> int:
     log(f"  built {len(_build.SOURCES)} kernels with nvcc in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR}")
     for src in _build.SOURCES:
-        with open(_build.library_path(src)[1] + ".log") as f:
-            report = [ln.split(":", 1)[-1].strip() for ln in f if "Used" in ln or "spill" in ln]
-        log(f"  {src}.cu: {'; '.join(report)}")
+        log(f"  {src}.cu -Xptxas -v: {'; '.join(ptxas_report(_build.library_path(src)[1] + '.log'))}")
 
     t0 = time.perf_counter()
     store = bench_store(cache_dir="0")
@@ -426,8 +588,9 @@ def main() -> int:
     levels = sample_tree(graph.adj, graph.degrees, roots, FANOUTS, generator=gen)
     torch.cuda.synchronize()
 
-    log("phase 3: kernels against their plain versions at main-path shapes")
+    log("phase 3: kernels against their plain versions at their paths' shapes")
     results = phase_kernels(torch, np, graph, levels, peaks)
+    check_packed_sampler(torch, graph, roots)
 
     log("phase 4: card against CPU")
     phase_reference(torch, np, store, levels)
@@ -438,8 +601,9 @@ def main() -> int:
     kernels_line = []
     for name_k, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["kernel"] == name_k]
-        # one step's calls: each main-path case once (the foil: the same six
-        # gather cases as gather_rows, one call each)
+        # one step's calls: each main-path case once (the foil: the cases
+        # gather_rows has on the main path; select_columns, which the main
+        # path no longer launches: one packed tree's two hops)
         step = lambda key: sum(r[key] * r["weight"] for r in rows)  # noqa: E731
         kernels_line.append({
             "name": name_k, "route": "cuda", "source": source, "replaces": replaces,

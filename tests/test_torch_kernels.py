@@ -25,10 +25,11 @@ from tpu_sage.sample.sampler import select_columns as j_select_columns
 from tpu_sage_torch import kernels, ops
 from tpu_sage_torch.kernels import _build
 from tpu_sage_torch.kernels import mean_project as mp
-from tpu_sage_torch.kernels.gather import gather_rows
+from tpu_sage_torch.kernels.gather import gather_plan, gather_rows, gather_rows_into
 from tpu_sage_torch.kernels.gather_blockspec import gather_rows_blockspec
 from tpu_sage_torch.kernels.gather_mean import gather_fanout_mean, word_elements
 from tpu_sage_torch.kernels.mean_project import mean_project
+from tpu_sage_torch.kernels.sample_hop import sample_hop
 from tpu_sage_torch.kernels.select import select_columns
 
 
@@ -258,6 +259,61 @@ def test_mean_project_bf16_plan_at_main_path_shapes():
         mp.bf16_plan(25, 2048, 1024, 1 << 20)
 
 
+@pytest.mark.parametrize("table_mod16", [0, 4, 8, 12])
+@pytest.mark.parametrize("out_mod16", [0, 4, 8, 12])
+def test_gather_plan_at_main_path_widths(table_mod16, out_mod16):
+    """The gather's form at each base offset mod 16: 1,204-byte bf16 feature
+    rows and 516-byte packed adjacency ‖ degree rows realign (16-byte loads,
+    3 and 2 per lane, whatever the offsets); a 512-byte adjacency row moves
+    as 16-byte words, one per lane, when both bases are 16-byte aligned and
+    realigns otherwise; a 4-byte degree row puts 32 rows in a warp."""
+    def plan(row_bytes):
+        return gather_plan(row_bytes, table_mod16, out_mod16)
+
+    assert plan(1204) == {"form": "realign", "word": 16, "lanes_per_row": 32,
+                          "words_per_lane": 3}
+    assert plan(516) == {"form": "realign", "word": 16, "lanes_per_row": 32,
+                         "words_per_lane": 2}
+    if table_mod16 == out_mod16 == 0:
+        assert plan(512) == {"form": "words", "word": 16, "lanes_per_row": 32,
+                             "words_per_lane": 0}
+    else:
+        assert plan(512) == {"form": "realign", "word": 16, "lanes_per_row": 32,
+                             "words_per_lane": 2}
+    assert plan(4) == {"form": "words", "word": 4, "lanes_per_row": 1, "words_per_lane": 0}
+
+
+def test_gather_plan_narrow_and_unaligned_rows():
+    """Rows of at most 128 bytes share a warp in power-of-two lane groups;
+    rows whose width is not a multiple of 4 keep 2- or 1-byte words; wide
+    rows realign in chunks of at most 4 words per lane; a 2-byte base
+    offset keeps the word form."""
+    assert gather_plan(8, 4, 0) == {"form": "words", "word": 4, "lanes_per_row": 2,
+                                    "words_per_lane": 0}
+    assert gather_plan(100, 0, 0)["lanes_per_row"] == 32
+    assert gather_plan(64, 0, 0) == {"form": "words", "word": 16, "lanes_per_row": 4,
+                                     "words_per_lane": 0}
+    assert gather_plan(602, 0, 0) == {"form": "words", "word": 2, "lanes_per_row": 32,
+                                      "words_per_lane": 0}
+    assert gather_plan(601, 0, 0)["word"] == 1 and gather_plan(1204, 2, 0)["word"] == 2
+    assert gather_plan(1204, 2, 0)["form"] == "words"
+    assert gather_plan(2408, 0, 0)["words_per_lane"] == 4  # f32 602: two chunks
+    assert gather_plan(4096, 0, 0)["form"] == "realign"
+    for row_bytes in range(1, 3000, 7):
+        for t in range(16):
+            p = gather_plan(row_bytes, t, (3 * t) % 16)
+            if p["form"] == "realign":
+                assert row_bytes % 4 == 0 and t % 4 == 0 and 1 <= p["words_per_lane"] <= 4
+            else:
+                assert row_bytes % p["word"] == 0 and t % p["word"] == 0
+                assert p["lanes_per_row"] in (1, 2, 4, 8, 16, 32)
+
+
+def test_gather_rows_into_runs_on_cuda_only():
+    with pytest.raises(ValueError, match="runs on cuda"):
+        gather_rows_into(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32), torch.zeros(1, 2))
+
+
 def test_gather_fanout_mean_word_width():
     """bf16 rows move in the widest word dividing the row and the address: a
     602-wide row as bf16x2 words; f32 rows as 8-byte words."""
@@ -270,6 +326,7 @@ def test_gather_fanout_mean_word_width():
 
 @pytest.mark.parametrize("call", [
     lambda t: select_columns(t.int(), t[:, :2].int()),
+    lambda t: sample_hop(t.int(), t[:, 0].int(), t[:2, 0].int(), t[:2, :3]),
     lambda t: gather_rows(t, torch.zeros(2, dtype=torch.int32, device=t.device)),
     lambda t: gather_rows_blockspec(t, torch.zeros(2, dtype=torch.int32, device=t.device)),
     lambda t: gather_fanout_mean(t, torch.zeros(2, dtype=torch.int32, device=t.device), 2),
@@ -298,17 +355,20 @@ def test_require_checks_dtype_shape_and_contiguity():
 def test_plain_versions_do_not_count_as_launches():
     kernels.reset_launch_counts()
     select_columns(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(2, 1, dtype=torch.int32))
+    sample_hop(torch.zeros(3, 4, dtype=torch.int32), torch.ones(3, dtype=torch.int32),
+               torch.zeros(2, dtype=torch.int32), torch.zeros(2, 5))
     gather_rows(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32))
     gather_rows_blockspec(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32))
     gather_fanout_mean(torch.zeros(3, 2), torch.zeros(2, dtype=torch.int32), 2)
     mean_project(torch.zeros(2, 2, 4, dtype=torch.bfloat16), torch.zeros(4, 3, dtype=torch.bfloat16))
-    assert "gather_rows_blockspec" in kernels.KERNEL_MODULES
+    assert {"gather_rows_blockspec", "sample_hop"} <= set(kernels.KERNEL_MODULES)
     assert kernels.launch_counts() == {name: 0 for name in kernels.KERNEL_MODULES}
 
 
 def test_every_kernel_source_notes_what_it_replaces_and_its_bound():
     for name, replaced, entry in [
             ("select", "select_columns_pallas", "tsg_select_columns("),
+            ("select", "select_columns_pallas", "tsg_sample_hop("),
             ("gather", "gather_rows", "tsg_gather_rows("),
             ("gather", "gather_rows_blockspec", "tsg_gather_rows_blockspec("),
             ("gather_mean", "gather_fanout_mean", "tsg_gather_fanout_mean("),

@@ -13,7 +13,9 @@ import scipy.stats
 import torch
 
 from tpu_sage.sample import sampler as jsampler
-from tpu_sage_torch.sample.sampler import sample_tree, uniform_neighbor_sample
+from tpu_sage_torch.kernels.sample_hop import sample_hop, sample_hop_reference
+from tpu_sage_torch.sample.sampler import (pack_adjacency, sample_tree, sample_tree_packed,
+                                           uniform_neighbor_sample)
 
 ONE_MINUS_ULP = np.nextafter(np.float32(1.0), np.float32(0.0))
 
@@ -86,6 +88,89 @@ def test_sample_tree_bit_equal_under_reference_key_splits():
     assert [l.shape[0] for l in ours] == [4, 20, 60]
     for a, b in zip(ours, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sample_hop_reference_matches_reference_hop(seed):
+    """The fused hop's plain version, directly and through the wrapper on CPU
+    tensors, bitwise against JAX's uniform_neighbor_sample fed the same
+    uniforms, on the degree 0/1/3/8/5 graph."""
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3, 4, 3, 0, 2, 1], dtype=np.int32)
+    key = jax.random.key(seed)
+    want = np.asarray(jsampler.uniform_neighbor_sample(key, jnp.asarray(adj), jnp.asarray(deg),
+                                                       jnp.asarray(ids), 7))
+    u = _t(jax.random.uniform(key, (ids.shape[0], 7)))
+    for fn in (sample_hop_reference, sample_hop):
+        ours = fn(_t(adj), _t(deg), _t(ids), u)
+        assert ours.dtype == torch.int32
+        np.testing.assert_array_equal(ours.numpy(), want)
+
+
+def test_out_of_range_ids_and_u_near_one_match_reference_plain_form(monkeypatch):
+    """Ids below -n, negative and >= n read as JAX's plain gather does (wrap
+    once by n, then clamp), with u at 0 and within an ulp of 1.0."""
+    adj, deg = _graph()
+    ids = np.array([-1, -3, -5, -6, -40, 5, 9, 0, 4], dtype=np.int32)
+    u = np.tile(np.array([ONE_MINUS_ULP, 0.0, 0.5, ONE_MINUS_ULP], np.float32), (ids.shape[0], 1))
+    monkeypatch.setattr(jax.random, "uniform", lambda key, shape: jnp.asarray(u))
+    want = np.asarray(jsampler.uniform_neighbor_sample(
+        jax.random.key(0), jnp.asarray(adj), jnp.asarray(deg), jnp.asarray(ids), 4))
+    ours = uniform_neighbor_sample(_t(adj), _t(deg), _t(ids), 4, u=_t(u)).numpy()
+    np.testing.assert_array_equal(ours, want)
+    np.testing.assert_array_equal(ours[0], ours[-1])  # -1 reads row n - 1
+    np.testing.assert_array_equal(ours[4], ours[7])   # -40 wraps to -35, clamps to 0
+
+
+def test_sample_hop_checks_its_shapes():
+    adj, deg = _graph()
+    ids = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="degrees"):
+        sample_hop(_t(adj), _t(deg[:4]), ids, torch.zeros(3, 2))
+    with pytest.raises(ValueError, match="u must be"):
+        sample_hop(_t(adj), _t(deg), ids, torch.zeros(2, 2))
+
+
+def _reference_uniforms(key, n, fanouts):
+    """Each hop's uniforms under the reference's split structure."""
+    us = []
+    for f in fanouts:
+        key, sub = jax.random.split(key)
+        us.append(jax.random.uniform(sub, (n, f)))
+        n *= f
+    return us
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_packed_sampler_bit_equal_to_reference_and_to_sample_tree(seed):
+    """pack_adjacency and sample_tree_packed bitwise against the JAX
+    package's, and against the port's sample_tree with the same uniforms."""
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3, 4, 2], dtype=np.int32)
+    fanouts = (5, 3)
+    key = jax.random.key(seed)
+    j_packed = jsampler.pack_adjacency(jnp.asarray(adj), jnp.asarray(deg))
+    packed = pack_adjacency(_t(adj), _t(deg))
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (5, 9)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(j_packed))
+    want = jsampler.sample_tree_packed(key, j_packed, jnp.asarray(ids), fanouts)
+    us = [_t(u) for u in _reference_uniforms(key, ids.shape[0], fanouts)]
+    ours = sample_tree_packed(packed, _t(ids), fanouts, us=us)
+    fused = sample_tree(_t(adj), _t(deg), _t(ids), fanouts, us=us)
+    assert [l.shape[0] for l in ours] == [6, 30, 90]
+    for a, b, c in zip(ours, want, fused):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert torch.equal(a, c)
+
+
+def test_packed_sampler_draws_the_same_tree_from_one_generator_state():
+    adj, deg = _graph()
+    ids = torch.tensor([1, 2, 3, 4, 0], dtype=torch.int32)
+    packed = sample_tree_packed(pack_adjacency(_t(adj), _t(deg)), ids, (4, 2),
+                                generator=torch.Generator().manual_seed(9))
+    fused = sample_tree(_t(adj), _t(deg), ids, (4, 2), generator=torch.Generator().manual_seed(9))
+    for a, b in zip(packed, fused):
+        assert torch.equal(a, b)
 
 
 def test_sample_tree_generator_is_deterministic_per_seed():

@@ -1,18 +1,36 @@
-"""Time this checkout's fanout-mean and mean + projection kernels against
-another checkout's, in turns on one card, L2-cold, at the main path's shapes.
+"""Time this checkout's kernels against another checkout's, in turns on one
+card, L2-cold, at the main path's shapes.
 
-    python -m tpu_sage_torch.bench.kernel_ab --other DIR
+    python -m tpu_sage_torch.bench.kernel_ab --other DIR [--pairs gather,hop]
 
-``DIR`` holds another checkout of the repository whose
-``tpu_sage_torch/kernels/csrc/{gather_mean,mean_project}.cu`` export the
-earlier C interface ``tsg_gather_fanout_mean(table, ids, out, n_table,
-n_roots, d, fanout, is_bf16, stream)`` and ``tsg_mean_project(x, w, out, b,
-f, d, o, is_bf16, stream)``. Both are built with this checkout's
-``nvcc`` flags into ``build/tpu_sage_torch/ab/``. The inputs are the ones
-``chip_smoke.py`` phase 3 uses (Reddit-shaped ``bench_store``, batch 512,
-fanouts (25, 10), seed 0). Each pair is timed in the order other, this,
-this, other (``bench.timing.cuda_ms``, median of 20 L2-cold calls each); one
-JSON line reports both times of each side, the card and its power limit.
+``DIR`` holds another checkout of the repository. Each pair needs the C
+interface named below from the other checkout's
+``tpu_sage_torch/kernels/csrc/*.cu``; only the sources of the pairs asked
+for are built, with this checkout's ``nvcc`` flags, into
+``build/tpu_sage_torch/ab/``.
+
+- ``gather`` (the default, with ``hop``): the two feature gathers (bf16
+  rows of the store, q = 512 and 12,800) and one of the first 51,200 ids of
+  the deepest level (the two larger cases give the marginal rate per row),
+  this ``gather_rows`` against
+  ``tsg_gather_rows(table, ids, out, n_table, q, row_bytes, word_bytes,
+  oob_zero, stream)`` with the widest word that divides the row and both
+  bases (the interface before ``gather_plan``).
+- ``hop``: each sampler hop (512 × 25, then 12,800 × 10) as that interface
+  ran it, a ``tsg_gather_rows`` of the degrees as an ``(n, 1)`` view, the
+  column arithmetic in PyTorch, a ``tsg_gather_rows`` of the adjacency rows
+  and ``tsg_select_columns(rows, cols, out, b, d, k, stream)``, against this
+  ``sample_hop``, with the same uniforms.
+- ``fanout_mean`` and ``mean_project``: ``tsg_gather_fanout_mean(table,
+  ids, out, n_table, n_roots, d, fanout, is_bf16, stream)`` and
+  ``tsg_mean_project(x, w, out, b, f, d, o, is_bf16, stream)``, the first
+  interface of both kernels.
+
+The inputs are the ones ``chip_smoke.py`` phase 3 uses (Reddit-shaped
+``bench_store``, batch 512, fanouts (25, 10), seed 0). Each pair is timed in
+the order other, this, this, other (``bench.timing.cuda_ms``, median of 20
+L2-cold calls each); one JSON line reports both times of each side and the
+largest difference of their outputs, after the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -26,25 +44,27 @@ import subprocess
 import torch
 
 from tpu_sage_torch.bench.timing import cuda_ms
-from tpu_sage_torch.kernels import _build, gather_mean, mean_project
+from tpu_sage_torch.kernels import _build, gather, gather_mean, mean_project, sample_hop
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-_OTHER_SIGNATURES = {
-    "gather_mean": ("tsg_gather_fanout_mean", (_P, _P, _P, _LL, _LL, _I, _I, _I, _P)),
-    "mean_project": ("tsg_mean_project", (_P, _P, _P, _LL, _I, _I, _I, _I, _P)),
+_GATHER = ("gather", "tsg_gather_rows", (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P))
+_OTHER = {  # pair -> the other checkout's (source, entry point, argtypes) it calls
+    "gather": (_GATHER,),
+    "hop": (_GATHER, ("select", "tsg_select_columns", (_P, _P, _P, _LL, _I, _I, _P))),
+    "fanout_mean": (("gather_mean", "tsg_gather_fanout_mean",
+                     (_P, _P, _P, _LL, _LL, _I, _I, _I, _P)),),
+    "mean_project": (("mean_project", "tsg_mean_project", (_P, _P, _P, _LL, _I, _I, _I, _I, _P)),),
 }
 
 
-def _build_other(root: str, name: str):
+def _build_other(root: str, name: str, entry: str, argtypes):
     src = os.path.join(root, "tpu_sage_torch", "kernels", "csrc", name + ".cu")
     out_dir = os.path.join(_build.BUILD_DIR, "ab")
     os.makedirs(out_dir, exist_ok=True)
     lib_path = os.path.join(out_dir, f"lib{name}_other.so")
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
                    capture_output=True)
-    lib = ctypes.CDLL(lib_path)
-    fn_name, argtypes = _OTHER_SIGNATURES[name]
-    fn = getattr(lib, fn_name)
+    fn = getattr(ctypes.CDLL(lib_path), entry)
     fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     return fn
 
@@ -56,55 +76,99 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--other", required=True, help="root of the other checkout")
+    parser.add_argument("--pairs", default="gather,hop",
+                        help=f"comma-separated, of {', '.join(_OTHER)}")
     args = parser.parse_args(argv)
+    pairs_wanted = args.pairs.split(",")
+    unknown = sorted(set(pairs_wanted) - set(_OTHER))
+    if unknown:
+        parser.error(f"unknown pairs {unknown}; choose from {list(_OTHER)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     _build.build()
-    other = {name: _build_other(args.other, name) for name in _OTHER_SIGNATURES}
+    other = {}
+    for pair in pairs_wanted:
+        for name, entry, argtypes in _OTHER[pair]:
+            if entry not in other:
+                other[entry] = _build_other(args.other, name, entry, argtypes)
 
     store = bench_store(cache_dir="0")
     graph = NodeProblem(store).device_graph(train=True, dtype=torch.bfloat16, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     roots = torch.as_tensor(store.folds["train"][:512], dtype=torch.int32, device="cuda")
     l0, l1, l2 = sample_tree(graph.adj, graph.degrees, roots, (25, 10), generator=gen)
-    feats = graph.feats
+    feats, adj, degrees = graph.feats, graph.adj, graph.degrees
     n, d = feats.shape
-    x0 = feats[l1.long()].view(512, 25, d)
-    x1 = torch.relu(torch.randn((512, 25, 256), generator=gen, device="cuda")).to(torch.bfloat16)
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
+    def other_gather(table, ids):
+        q, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
+        out = torch.empty((q, table.shape[1]), dtype=table.dtype, device="cuda")
+        word = gather._word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
+        _build.check_launch(other["tsg_gather_rows"](
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0], q, row_bytes,
+            word, 0, stream()), "other tsg_gather_rows")
+        return out
+
+    def other_hop(ids, u):
+        deg = other_gather(degrees.view(-1, 1), ids).view(-1).clamp_min(1)
+        cols = sample_hop.hop_columns(u, deg).contiguous()
+        rows = other_gather(adj, ids)
+        out = torch.empty(cols.shape, dtype=torch.int32, device="cuda")
+        _build.check_launch(other["tsg_select_columns"](
+            rows.data_ptr(), cols.data_ptr(), out.data_ptr(), rows.shape[0], rows.shape[1],
+            cols.shape[1], stream()), "other tsg_select_columns")
+        return out
+
     def other_fanout_mean():
         out = torch.empty((l2.shape[0] // 10, d), dtype=torch.float32, device="cuda")
-        _build.check_launch(other["gather_mean"](feats.data_ptr(), l2.data_ptr(), out.data_ptr(),
-                                                 n, out.shape[0], d, 10, 1, stream()),
-                            "other tsg_gather_fanout_mean")
+        _build.check_launch(other["tsg_gather_fanout_mean"](
+            feats.data_ptr(), l2.data_ptr(), out.data_ptr(), n, out.shape[0], d, 10, 1,
+            stream()), "other tsg_gather_fanout_mean")
         return out
 
     def other_mean_project(x, w):
         b, f, dx = x.shape
         out = torch.empty((b, w.shape[1]), dtype=x.dtype, device="cuda")
-        _build.check_launch(other["mean_project"](x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                                  b, f, dx, w.shape[1], 1, stream()),
-                            "other tsg_mean_project")
+        _build.check_launch(other["tsg_mean_project"](
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, dx, w.shape[1], 1, stream()),
+            "other tsg_mean_project")
         return out
 
-    pairs = {"gather_fanout_mean bf16 ids=128000 F=10":
-             (other_fanout_mean, lambda: gather_mean.gather_fanout_mean(feats, l2, 10))}
-    for label, x in (("layer 0", x0), ("layer 1", x1)):
-        w = (torch.randn((x.shape[2], 128), generator=gen, device="cuda")
-             / x.shape[2] ** 0.5).to(torch.bfloat16)
-        pairs[f"mean_project {label} x {tuple(x.shape)}"] = (
-            lambda x=x, w=w: other_mean_project(x, w),
-            lambda x=x, w=w: mean_project.mean_project(x, w))
+    pairs = {}
+    if "gather" in pairs_wanted:
+        for ids in (l0, l1, l2[:51200]):
+            pairs[f"gather_rows feats bf16 {tuple(feats.shape)} q={ids.shape[0]}"] = (
+                lambda i=ids: other_gather(feats, i), lambda i=ids: gather.gather_rows(feats, i))
+    if "hop" in pairs_wanted:
+        for hop, (ids, f) in enumerate(((l0, 25), (l1, 10)), 1):
+            u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
+            pairs[f"hop {hop} ids ({ids.shape[0]},) u {tuple(u.shape)}: gathers + select "
+                  f"vs sample_hop"] = (
+                lambda i=ids, u=u: other_hop(i, u),
+                lambda i=ids, u=u: sample_hop.sample_hop(adj, degrees, i, u))
+    if "fanout_mean" in pairs_wanted:
+        pairs["gather_fanout_mean bf16 ids=128000 F=10"] = (
+            other_fanout_mean, lambda: gather_mean.gather_fanout_mean(feats, l2, 10))
+    if "mean_project" in pairs_wanted:
+        x1 = torch.relu(torch.randn((512, 25, 256), generator=gen, device="cuda")).to(
+            torch.bfloat16)
+        for label, x in (("layer 0", feats[l1.long()].view(512, 25, d)), ("layer 1", x1)):
+            w = (torch.randn((x.shape[2], 128), generator=gen, device="cuda")
+                 / x.shape[2] ** 0.5).to(torch.bfloat16)
+            pairs[f"mean_project {label} x {tuple(x.shape)}"] = (
+                lambda x=x, w=w: other_mean_project(x, w),
+                lambda x=x, w=w: mean_project.mean_project(x, w))
+
     report = {}
     for label, (fn_other, fn_this) in pairs.items():
         a, b = fn_other(), fn_this()
         torch.cuda.synchronize()
-        err = (a.float() - b.float()).abs().max().item()
+        err = (a.double() - b.double()).abs().max().item()
         t = [cuda_ms(fn) for fn in (fn_other, fn_this, fn_this, fn_other)]
         report[label] = {"other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]],
                          "max_abs_diff": err}

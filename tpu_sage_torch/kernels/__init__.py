@@ -4,6 +4,8 @@
 port module            replaces (JAX package)                              CUDA source
 =====================  ==================================================  ====================
 ``select``             ``kernels/select.py::select_columns_pallas``        ``csrc/select.cu``
+``sample_hop``         ``kernels/select.py::select_columns_pallas`` with   ``csrc/select.cu``
+                       the hop's gathers (``sample/sampler.py:55-60``)
 ``gather``             ``kernels/gather.py::gather_rows``                  ``csrc/gather.cu``
 ``gather_blockspec``   ``kernels/gather.py::gather_rows_blockspec``        ``csrc/gather.cu``
 ``gather_mean``        ``kernels/gather_mean.py::gather_fanout_mean``      ``csrc/gather_mean.cu``
@@ -15,14 +17,18 @@ Each module holds its kernel's wrapper, the plain PyTorch version beside it
 version only for tensors on the CPU; for a CUDA tensor it launches its kernel
 or raises. The kernels build on first use (``_build``). ``gather_blockspec``
 is the measurement foil of ``gather``: nothing on the main path launches it.
+The main path's sampler hops launch ``sample_hop`` (select fused with its
+gathers); the packed sampler launches ``select``.
 """
 
 from __future__ import annotations
 
-from tpu_sage_torch.kernels import gather, gather_blockspec, gather_mean, mean_project, select
+from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
+                                    sample_hop, select)
 
 KERNEL_MODULES = {
     "select_columns": select,
+    "sample_hop": sample_hop,
     "gather_rows": gather,
     "gather_rows_blockspec": gather_blockspec,
     "gather_fanout_mean": gather_mean,

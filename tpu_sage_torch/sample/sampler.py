@@ -8,6 +8,11 @@ ids' device. ``torch.Generator`` and ``jax.random`` give different numbers
 from one seed, so the sampling functions also take the uniforms ``u``
 directly: fed the reference's uniforms, they pick the reference's columns bit
 for bit.
+
+A hop of ``sample_tree`` is one ``sample_hop`` kernel (gathers, column
+arithmetic and select fused). ``sample_tree_packed`` is the reference's
+packed alternative: one row gather of ``adjacency ‖ degree`` per hop, then
+the column select; it draws the same tree for the same uniforms.
 """
 
 from __future__ import annotations
@@ -16,8 +21,17 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from tpu_sage_torch.kernels.sample_hop import hop_columns, sample_hop
 from tpu_sage_torch.kernels.select import select_columns
 from tpu_sage_torch.ops import row_gather
+
+
+def _uniforms(ids: torch.Tensor, n_samples: int, generator: Optional[torch.Generator],
+              u: Optional[torch.Tensor]) -> torch.Tensor:
+    if u is not None:
+        return u
+    return torch.rand((ids.shape[0], n_samples), generator=generator, device=ids.device,
+                      dtype=torch.float32)
 
 
 def uniform_neighbor_sample(
@@ -36,16 +50,9 @@ def uniform_neighbor_sample(
     uniforms in ``[0, 1)``; without it they are drawn from ``generator``.
     Returns ``(B, n_samples)`` int32 neighbor ids.
     """
-    ids = ids.to(torch.int32)
-    deg = row_gather(degrees, ids).clamp_min(1)  # degree-0 -> col 0 == self pad
-    if u is None:
-        u = torch.rand((ids.shape[0], n_samples), generator=generator,
-                       device=ids.device, dtype=torch.float32)
-    # trunc(u * deg) in [0, deg); the min guards u within an ulp of 1.0
-    cols = torch.minimum((u * deg[:, None].to(torch.float32)).to(torch.int32),
-                         deg[:, None] - 1)
-    rows = row_gather(adj, ids)  # (B, max_degree)
-    return select_columns(rows, cols.contiguous())
+    ids = ids.to(torch.int32).contiguous()
+    u = _uniforms(ids, n_samples, generator, u)
+    return sample_hop(adj, degrees, ids, u.contiguous())
 
 
 def sample_tree(
@@ -71,4 +78,33 @@ def sample_tree(
             u=None if us is None else us[hop],
         )
         levels.append(nbr.reshape(-1))
+    return levels
+
+
+def pack_adjacency(adj: torch.Tensor, degrees: torch.Tensor) -> torch.Tensor:
+    """``(n, max_degree + 1)`` int32: the adjacency row ‖ the degree."""
+    return torch.cat([adj, degrees[:, None].to(adj.dtype)], dim=1)
+
+
+def sample_tree_packed(
+    adj_deg: torch.Tensor,
+    ids: torch.Tensor,
+    fanouts: Sequence[int],
+    *,
+    generator: Optional[torch.Generator] = None,
+    us: Optional[Sequence[torch.Tensor]] = None,
+) -> List[torch.Tensor]:
+    """``sample_tree`` against a ``pack_adjacency`` table: one row gather per
+    hop, then the column select on the adjacency part of the rows (a view,
+    no copy).
+
+    Draws the same tree as ``sample_tree`` for the same ``us``, or for the
+    same ``generator`` state (the same uniforms in the same order)."""
+    levels = [ids.to(torch.int32)]
+    for hop, fanout in enumerate(fanouts):
+        cur = levels[-1].contiguous()
+        rows = row_gather(adj_deg, cur)  # one gather: adj ‖ deg
+        u = _uniforms(cur, fanout, generator, None if us is None else us[hop])
+        cols = hop_columns(u, rows[:, -1].clamp_min(1))
+        levels.append(select_columns(rows[:, :-1], cols).reshape(-1))
     return levels
