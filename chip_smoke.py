@@ -18,7 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    selects; the degree and adjacency gathers the hops used to launch), and
    the ``gather_rows_blockspec`` foil at the six gather shapes, and times
    kernel, plain version and one PyTorch library call with CUDA events,
-   L2-cold (``tpu_sage_torch.bench.timing``); then edge cases (every
+   L2-cold (``tpu_sage_torch.bench.timing``), and ``gather_rows`` at exact
+   inference's three shapes (one 4,096-node chunk's 524,288 neighbor ids
+   from f32 602-wide, f32 256-wide and bf16 602-wide tables); then edge cases (every
    realignment shift of ``gather_rows``, out-of-range ids, degree 0) and the
    packed sampler (``sample_tree_packed``) at full width, bitwise against
    ``sample_tree`` with the same uniforms and with its own launch counts;
@@ -34,7 +36,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    edges/s (edges/step = B·(f1 + f1·f2) = 140,800), then profiles 5 more
    steps with torch.profiler: device kernel time by name, the device busy
    share against the unprofiled ms/step, and kernel launches per step;
-6. prints the kernels line, then ``{"ok": true, "device": ...}`` last.
+6. serving path: exact full-graph inference (``nn/full_graph.py``) on the
+   card against the CPU on a 20,000-node full-width store and an SBM store
+   with degree-0 nodes (f32 and bf16 tables, embeddings and logits); then,
+   through the entry points, ``tpu_sage_torch.cli.main`` trains the
+   232,965-node Reddit-shaped store with ``configs/reddit_mean.json`` for 2
+   epochs (``--save-best --checkpoint-every 1 --exact-val --val-interval
+   100``) and resumed to 3, which must start at epoch 2, and
+   ``tpu_sage_torch.export.main`` writes f16 logits from the best file
+   (232,965 × 41, finite, scoring the val fold as the best file's metric);
+   each with the launch counters from 0: training launches every main-path
+   kernel, the export ``gather_rows`` 2 × 57 times and nothing else; prints
+   the ms per exact pass on the f32 and bf16 tables, nodes/s, the gathers'
+   bound and a profile of one pass, after the card's name and power limit;
+7. prints the kernels line (the exact-inference gathers among
+   ``gather_rows``'s cases, launches by path), then ``{"ok": true,
+   "device": ...}`` last.
 """
 
 from __future__ import annotations
@@ -51,6 +68,11 @@ EVAL_NODES = 4096
 PER_STEP = {"select_columns": 0, "sample_hop": 2, "gather_rows": 2, "gather_rows_blockspec": 0,
             "gather_fanout_mean": 1, "mean_project": 2}
 SHIFT_ROWS = 4096  # rows of the small tables that check every realignment shift
+EXACT_CHUNK = 4096  # exact inference's node chunk (the exporter's default)
+SERVING_NODES = 232_965  # the serving path's Reddit-shaped store
+CHECK_NODES = 20_000  # phase 6's card-against-CPU store, at full width and degree
+EXACT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}  # x max|out|, as tests/test_torch_full_graph.py
+PASS_REPS = 3
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -197,6 +219,24 @@ def phase_kernels(torch, np, graph, levels, peaks):
                     lambda t=tab, i=ids64: t[i],
                     4 * q + nd * row + q * row, weight=weight)
 
+    # gather: exact inference's shapes (off the training step, weight 0): one
+    # chunk's neighbor ids, q = 4,096 x 128, from an f32 (n, 602) table
+    # (export, layer 0), an f32 (n, 256) one (layer 1) and a bf16 (n, 602)
+    # one (fit's exact validation, layer 0)
+    cols = torch.arange(max_degree, dtype=torch.int32, device="cuda")
+    chunk_ids = torch.where(cols < deg[:EXACT_CHUNK, None], adj[:EXACT_CHUNK], -1).reshape(-1)
+    q, nd = chunk_ids.shape[0], distinct(chunk_ids)
+    feats32 = feats.float()
+    hidden = torch.randn((n, 2 * DIMS[0]), generator=gen, device="cuda")
+    for name, tab in (("exact layer 0 f32", feats32), ("exact layer 1 f32", hidden),
+                      ("exact layer 0 bf16", feats)):
+        row = tab.shape[1] * tab.element_size()
+        add("gather_rows", f"{name} {tuple(tab.shape)} q={q}",
+            lambda t=tab: gather.gather_rows(t, chunk_ids, "zero"),
+            lambda t=tab: gather.gather_rows_reference(t, chunk_ids, "zero"),
+            lambda t=tab: t[chunk_ids.long()],
+            4 * q + nd * row + q * row, weight=0)
+
     # fanout mean: deepest level, 128,000 ids, F = 10 -> (12800, 602) f32
     f = FANOUTS[1]
     r, dcol = l2.shape[0] // f, feats.shape[1]
@@ -281,11 +321,10 @@ def phase_kernels(torch, np, graph, levels, peaks):
     if not torch.equal(select.select_columns(rows, cols_oob),
                        select.select_columns_reference(rows, cols_oob)):
         raise AssertionError("select_columns differs on out-of-range columns")
-    feats32 = feats.float()
     if not torch.equal(gather_mean.gather_fanout_mean(feats32, l2, f),
                        gather_mean.gather_fanout_mean_reference(feats32, l2, f)):
         raise AssertionError("gather_fanout_mean f32 differs from its plain version")
-    del feats32
+    del feats32, hidden
     xr = x0[:37, :10].contiguous()  # B = 37: a ragged last block; O = 256: W chunks in a ring
     wr = (torch.randn((dcol, 256), generator=gen, device="cuda") / dcol ** 0.5).to(xr.dtype)
     ref = mean_project.mean_project_reference(xr, wr)
@@ -515,23 +554,37 @@ def phase_main_path(torch, np, problem):
     return counts
 
 
-def profile_steps(torch, trainer, state, graph, batches, ms_step):
-    """Where a step's time goes: device kernel time by name over a few steps
-    under torch.profiler, against the unprofiled ms/step above."""
+def device_profile(torch, fn, calls):
+    """Device kernel time by name over ``calls`` calls of ``fn`` under
+    torch.profiler: ``([(name, ms per call, launches per call)] sorted by
+    time, host kernel launches per call)``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for ids in batches:
-            state, _ = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / len(batches), e.count // len(batches))
+    kernels = sorted(((e.key, e.self_device_time_total / 1e3 / calls, e.count // calls)
                       for e in avgs if e.device_type == DeviceType.CUDA
                       and not e.is_user_annotation),  # ranges such as Optimizer.step
                      key=lambda k: -k[1])
     launches = sum(e.count for e in avgs if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                                      "cudaLaunchKernelExC")) / len(batches)
+                                                      "cudaLaunchKernelExC")) / calls
+    return kernels, launches
+
+
+def profile_steps(torch, trainer, state, graph, batches, ms_step):
+    """Where a step's time goes: device kernel time by name over a few steps
+    under torch.profiler, against the unprofiled ms/step above."""
+    it = iter(batches)
+
+    def step():
+        ids = next(it)
+        trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+
+    kernels, launches = device_profile(torch, step, len(batches))
     device_ms = sum(k[1] for k in kernels)
     if device_ms == 0.0:
         log("  profile: the profiler recorded no device time; device busy share not measured")
@@ -541,6 +594,177 @@ def profile_steps(torch, trainer, state, graph, batches, ms_step):
         "unprofiled_ms_per_step": ms_step, "device_busy_share": device_ms / ms_step,
         "kernel_launches_per_step": launches,
         "top_kernels_ms_per_step": [[k[0][:80], k[1], k[2]] for k in kernels[:12]]}}))
+
+
+def check_exact_card_vs_cpu(torch, np):
+    """Phase 6 (a): exact inference on the card against the CPU's plain
+    path, f32 and bf16 tables, embeddings and logits (the CPU's logits: its
+    embeddings through the same head), on a full-width store and on an SBM
+    store with degree-0 nodes and a ragged last chunk."""
+    import copy
+
+    from tpu_sage_torch.data.synthetic import bench_store, sbm_store
+    from tpu_sage_torch.nn.full_graph import _dense, embed_all_nodes
+    from tpu_sage_torch.train.trainer import COMPUTE_DTYPES, TrainConfig, build_model
+
+    sbm = sbm_store(n_nodes=5000, n_classes=7, feat_dim=64, seed=4)
+    isolated = np.arange(0, sbm.n_nodes, 97)
+    sbm.degrees[isolated] = 0
+    sbm.adj[isolated] = isolated[:, None]
+    for label, store in ((f"bench_store {CHECK_NODES} x 602, degree 128",
+                          bench_store(n_nodes=CHECK_NODES, seed=1, cache_dir="0")),
+                         (f"sbm 5,000 x 64, {len(isolated)} degree-0 nodes", sbm)):
+        for dtype_name, dtype in COMPUTE_DTYPES.items():
+            cfg = TrainConfig(n_train_samples=FANOUTS, n_val_samples=FANOUTS, output_dims=DIMS,
+                              compute_dtype=dtype_name)
+            model = build_model(cfg, store.n_nodes, store.n_classes, store.feat_dim)
+            model.reset_parameters(torch.Generator().manual_seed(6))
+            emb = embed_all_nodes(model, store.to_device(train=False, dtype=dtype, device="cpu"),
+                                  chunk=EXACT_CHUNK)
+            with torch.inference_mode():
+                logits = _dense(emb, model.fc.kernel, model.fc.bias)
+            card = copy.deepcopy(model).to("cuda")
+            graph = store.to_device(train=False, dtype=dtype, device="cuda")
+            for what, want, with_head in (("embeddings", emb, False), ("logits", logits, True)):
+                got = embed_all_nodes(card, graph, chunk=EXACT_CHUNK, with_head=with_head).cpu()
+                limit = EXACT_TOL[dtype_name] * want.abs().max().item()
+                err = (got - want).abs().max().item()
+                if not (bool(torch.isfinite(got).all()) and err <= limit):
+                    raise AssertionError(f"exact {what}, {label}, {dtype_name} table: card vs "
+                                         f"CPU max abs err {err} > {limit}")
+                log(f"  exact {what:<10} {label}, {dtype_name} table {tuple(got.shape)}: card vs "
+                    f"CPU max abs err {err:.3g} (limit {limit:.3g})")
+
+
+def phase_serving(torch, np, smi, peaks):
+    """Phase 6: the serving path. (a) exact inference, card against CPU;
+    (b) the CLI trains at full width with checkpoints, exact validation and
+    a resume; (c) the exporter writes f16 logits from the best file; (d) the
+    launch counts of (b) and of (c), each from 0; (e) the time of an exact
+    pass on each table. Returns the launch counts of (b) and (c)."""
+    import tempfile
+
+    check_exact_card_vs_cpu(torch, np)
+    with tempfile.TemporaryDirectory() as tmp:
+        return serving_path(torch, np, smi, peaks, tmp)
+
+
+def serving_path(torch, np, smi, peaks, tmp):
+    """Phase 6 (b)-(e), with the checkpoints and the export in ``tmp``. The
+    CLI caches its Reddit-shaped store where ``bench_store`` does by default
+    (``build/tpu_sage_torch/bench_cache``), and the exporter loads it there."""
+    import os
+
+    from tpu_sage_torch import cli, export, kernels
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import bench_store
+    from tpu_sage_torch.nn.full_graph import embed_all_nodes
+    from tpu_sage_torch.train.checkpoint import read_best_metric
+    from tpu_sage_torch.train.trainer import (COMPUTE_DTYPES, TrainConfig, build_model,
+                                              fold_metric_np)
+
+    # (b) train through the CLI: 2 epochs, then resumed to 3
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                          "reddit_mean.json")
+    ck, logp = os.path.join(tmp, "model.npz"), os.path.join(tmp, "fit.jsonl")
+    argv = ["--config", config, "--synthetic", "reddit-shaped",
+            "--synthetic-nodes", str(SERVING_NODES), "--checkpoint-path", ck,
+            "--checkpoint-every", "1", "--save-best", "--exact-val", "--val-interval", "100",
+            "--log-path", logp]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for epochs in (2, 3):
+        if cli.main(argv + ["--epochs", str(epochs)]) != 0:
+            raise AssertionError(f"the CLI run to {epochs} epochs failed")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = kernels.launch_counts()
+    with open(logp) as f:
+        recs = [json.loads(line) for line in f]
+    resumed = [i for i, r in enumerate(recs) if "resumed_from" in r]
+    if len(resumed) != 1 or recs[resumed[0]]["start_epoch"] != 2:
+        raise AssertionError(f"the second CLI run did not resume at epoch 2: {resumed}")
+    epochs = [[r["epoch"] for r in part if "elapsed" in r]
+              for part in (recs[:resumed[0]], recs[resumed[0]:])]
+    vals = [r["val_metric"] for r in recs if "val_metric" in r]
+    if epochs != [[0, 1], [2]] or not vals or not all(0.0 <= v <= 1.0 for v in vals):
+        raise AssertionError(f"CLI epochs {epochs}, val metrics {vals}")
+    for name, n in fit_counts.items():
+        if (n == 0) != (PER_STEP[name] == 0):
+            raise AssertionError(f"CLI training launched {name} {n} times")
+    log(f"  CLI: 2 epochs, then resumed at epoch 2 from {recs[resumed[0]]['resumed_from']!r}; "
+        f"exact val metrics {[round(v, 4) for v in vals]}; launches {fit_counts}")
+
+    # (c) export f16 logits from the best file, (d) its launches
+    out = os.path.join(tmp, "logits.npy")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if export.main(["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES),
+                    "--checkpoint", ck, "--out", out, "--checkpoint-config", "--logits",
+                    "--out-dtype", "float16"]) != 0:
+        raise AssertionError("the export failed")
+    export_s = time.perf_counter() - t0
+    export_counts = kernels.launch_counts()
+    n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
+    if export_counts != {**{k: 0 for k in export_counts}, "gather_rows": 2 * n_chunks}:
+        raise AssertionError(f"export launches {export_counts}, expected gather_rows "
+                             f"2 x {n_chunks} and nothing else")
+    arr = np.load(out)
+    if arr.shape != (SERVING_NODES, 41) or arr.dtype != np.float16 or not np.isfinite(arr).all():
+        raise AssertionError(f"exported logits {arr.shape} {arr.dtype}, finite "
+                             f"{bool(np.isfinite(arr).all())}")
+    # the exported logits score the val fold as the best epoch's exact
+    # validation did (bf16 table there, f32 here, f16 out: a few argmax ties)
+    problem = NodeProblem(bench_store(n_nodes=SERVING_NODES, seed=123))
+    val_ids = problem.folds["val"]
+    acc = fold_metric_np(problem.task, arr[val_ids].astype(np.float32),
+                         problem.store.targets[val_ids])
+    best = read_best_metric(ck)
+    if abs(acc - best) > 0.01:
+        raise AssertionError(f"exported logits' val accuracy {acc} vs the best file's {best}")
+    log(f"  export {arr.shape} {arr.dtype} in {export_s:.2f} s: val accuracy {acc:.4f} "
+        f"(best file {best:.4f}); launches {export_counts}")
+
+    # (e) one exact pass (logits) per table: the export's f32, fit's bf16
+    cfg = TrainConfig.from_json(config)
+    model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim).to("cuda")
+    model.reset_parameters(torch.Generator().manual_seed(6))
+    passes = {}
+    for label, dtype_name in (("export_f32_table", "float32"), ("fit_bf16_table", "bfloat16")):
+        graph = problem.device_graph(train=False, dtype=COMPUTE_DTYPES[dtype_name],
+                                     device="cuda")
+        run = lambda g=graph: embed_all_nodes(model, g, chunk=EXACT_CHUNK, with_head=True)  # noqa: E731
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(PASS_REPS):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[len(times) // 2]
+        kern, launches = device_profile(torch, run, 1)
+        # the gathers' bound: ids, each distinct row read once, each row written
+        gather_bytes = 0.0
+        cols = torch.arange(graph.adj.shape[1], dtype=torch.int32, device="cuda")
+        for start in range(0, problem.n_nodes, EXACT_CHUNK):
+            ids = torch.where(cols < graph.degrees[start:start + EXACT_CHUNK, None],
+                              graph.adj[start:start + EXACT_CHUNK], -1).reshape(-1)
+            nd = int(torch.unique(ids).numel())
+            for row in (graph.feats.shape[1] * graph.feats.element_size(), 2 * DIMS[1] * 4):
+                gather_bytes += 4 * ids.numel() + nd * row + ids.numel() * row
+        passes[label] = {
+            "ms": ms, "ms_runs": times, "nodes_per_s": problem.n_nodes / ms * 1e3,
+            "gather_bound_ms": gather_bytes / peaks[0] * 1e3,
+            "device_kernel_ms": sum(k[1] for k in kern), "kernel_launches": launches,
+            "top_kernels_ms": [[k[0][:80], k[1], k[2]] for k in kern[:6]],
+        }
+    log(smi)
+    log(json.dumps({"serving_path": {
+        "nodes": problem.n_nodes, "chunk": EXACT_CHUNK, "chunks_per_layer": n_chunks,
+        "gather_rows_launches_per_pass": 2 * n_chunks, "exact_pass": passes,
+        "export_wall_s": export_s, "cli_fit_wall_s_both_runs": fit_s}}))
+    return {"cli_fit": fit_counts, "export": export_counts}
 
 
 def main() -> int:
@@ -596,18 +820,24 @@ def main() -> int:
     phase_reference(torch, np, store, levels)
 
     log("phase 5: main path")
-    counts = phase_main_path(torch, np, problem)
+    by_path = {"train_steps": phase_main_path(torch, np, problem)}
+
+    log("phase 6: serving path")
+    by_path.update(phase_serving(torch, np, smi, peaks))
 
     kernels_line = []
     for name_k, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["kernel"] == name_k]
         # one step's calls: each main-path case once (the foil: the cases
         # gather_rows has on the main path; select_columns, which the main
-        # path no longer launches: one packed tree's two hops)
+        # path no longer launches: one packed tree's two hops); the
+        # exact-inference gathers have weight 0 and stand in "cases"
         step = lambda key: sum(r[key] * r["weight"] for r in rows)  # noqa: E731
         kernels_line.append({
             "name": name_k, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name_k], "launches_per_step": PER_STEP[name_k],
+            "launches": sum(c[name_k] for c in by_path.values()),
+            "launches_by_path": {path: c[name_k] for path, c in by_path.items()},
+            "launches_per_step": PER_STEP[name_k],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)

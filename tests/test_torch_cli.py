@@ -1,0 +1,151 @@
+"""The port's CLI, ``python -m tpu_sage_torch.cli`` (mirroring
+``tests/test_cli.py``): in-process ``main()`` with ``--device cpu``; flags
+of paths not ported yet exit 2 naming their ROADMAP item."""
+
+import json
+import os
+
+import pytest
+import torch
+
+from tpu_sage.cli import main as jax_main
+from tpu_sage_torch.cli import main, parse_args
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "data", "golden_problem.h5")
+TINY = ["--synthetic", "sbm", "--synthetic-nodes", "300", "--n-train-samples", "4,3",
+        "--n-val-samples", "4,3", "--output-dims", "16,16", "--batch-size", "32",
+        "--device", "cpu"]
+
+
+def _capture(capsys):
+    out = capsys.readouterr().out.strip().splitlines()
+    return [json.loads(l) for l in out if l.startswith("{")]
+
+
+def test_unknown_aggregator_exits_2(capsys):
+    assert main(["--synthetic", "sbm", "--aggregator-class", "bogus", "--device", "cpu"]) == 2
+    assert "unknown" in capsys.readouterr().err
+
+
+def test_unported_aggregator_exits_2(capsys):
+    assert main(["--synthetic", "sbm", "--aggregator-class", "gcn", "--device", "cpu"]) == 2
+    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
+
+
+def test_mismatched_dims_exits_2():
+    assert main(["--synthetic", "sbm", "--n-train-samples", "25,10", "--output-dims", "128",
+                 "--device", "cpu"]) == 2
+
+
+def test_unknown_schedule_exits_2():
+    assert main(["--synthetic", "sbm", "--lr-schedule", "nope", "--device", "cpu"]) == 2
+
+
+def test_missing_problem_file_clean_error():
+    with pytest.raises(SystemExit) as ei:
+        main(["--problem-path", "/tmp/definitely_not_here.h5", "--device", "cpu"])
+    assert "problem file not found" in str(ei.value)
+
+
+def test_missing_checkpoint_clean_error(tmp_path):
+    from tpu_sage_torch.export import main as export_main
+
+    with pytest.raises(SystemExit) as ei:
+        export_main(["--synthetic", "sbm", "--synthetic-nodes", "300",
+                     "--checkpoint", "/tmp/definitely_not_here.npz",
+                     "--out", str(tmp_path / "o.npy"), "--device", "cpu",
+                     "--n-train-samples", "4,3", "--n-val-samples", "4,3",
+                     "--output-dims", "16,16"])
+    assert "checkpoint not found" in str(ei.value)
+
+
+def test_end_to_end_tiny(capsys):
+    assert main(TINY + ["--epochs", "1"]) == 0
+    recs = _capture(capsys)
+    assert any("train_loss" in r for r in recs)
+    assert any("final_test_metric" in r for r in recs)
+
+
+def test_problem_path_trains(capsys):
+    assert main(["--problem-path", GOLDEN, "--n-train-samples", "3,2", "--n-val-samples",
+                 "3,2", "--output-dims", "8,8", "--batch-size", "16", "--epochs", "1",
+                 "--device", "cpu"]) == 0
+    recs = _capture(capsys)
+    assert recs[0]["n_nodes"] == 64 and any("train_loss" in r for r in recs)
+
+
+def test_config_preset_with_explicit_default_value(capsys, tmp_path):
+    """A flag passed with its argparse-default value still overrides the
+    preset; the echoed config equals the JAX package's for the same argv."""
+    preset = tmp_path / "p.json"
+    preset.write_text(json.dumps({
+        "batch_size": 1024, "epochs": 7, "lr_schedule": "linear",
+        "n_train_samples": [4, 3], "n_val_samples": [4, 3],
+        "output_dims": [16, 16],
+    }))
+    argv = ["--config", str(preset), "--synthetic", "sbm", "--synthetic-nodes", "300",
+            "--batch-size", "256", "--epochs", "1", "--no-eval", "--patience", "2",
+            "--compute-dtype", "bfloat16", "--gather-chunks", "4"]
+    assert main(argv + ["--device", "cpu"]) == 0
+    cfg = _capture(capsys)[0]["config"]
+    assert cfg["batch_size"] == 256     # explicit flag (== argparse default)
+    assert cfg["epochs"] == 1           # explicit flag
+    assert cfg["lr_schedule"] == "linear"  # preset value kept
+    assert jax_main(argv) == 0
+    assert _capture(capsys)[0]["config"] == cfg
+
+
+def test_parse_ints():
+    args = parse_args(["--synthetic", "sbm", "--n-train-samples", "5,3,2"])
+    assert args.n_train_samples == "5,3,2"
+    assert args.device == "cuda"
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--partitioned"], 14), (["--halo", "exact"], 14), (["--halo-capacity-factor", "2"], 14),
+    (["--halo-chunks", "4"], 14), (["--halo-measure-steps", "3"], 14),
+    (["--reorder", "degree"], 14), (["--unsupervised"], 12), (["--csr-adjacency"], 11),
+    (["--feature-int8"], 10), (["--fuse-first-layer"], 13),
+], ids=lambda v: v[0] if isinstance(v, list) else str(v))
+def test_unported_flag_exits_2(capsys, flag, item):
+    assert main(TINY + ["--epochs", "1"] + flag) == 2
+    assert f"{flag[0]} is not ported yet (ROADMAP Queue 1 item {item})" in \
+        capsys.readouterr().err
+
+
+def test_cuda_without_a_card_exits_2(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; this checks the refusal without one")
+    assert main(["--synthetic", "sbm", "--epochs", "1"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_checkpoint_every_needs_a_path():
+    assert main(TINY + ["--epochs", "1", "--checkpoint-every", "1"]) == 2
+
+
+def test_save_best_resume_through_the_cli(tmp_path, capsys):
+    """The serving path's training half: --save-best with --checkpoint-every
+    and exact validation every --val-interval batches; a second, longer run
+    resumes at the next epoch, compares against the stored best metric and
+    ends with the final state in the .last file."""
+    ck, logp = str(tmp_path / "m.npz"), str(tmp_path / "log.jsonl")
+    argv = TINY + ["--checkpoint-path", ck, "--checkpoint-every", "1", "--save-best",
+                   "--exact-val", "--val-interval", "2", "--log-path", logp]
+    assert main(argv + ["--epochs", "2"]) == 0
+    assert os.path.exists(ck) and os.path.exists(ck + ".last")
+    capsys.readouterr()
+    assert main(argv + ["--epochs", "3"]) == 0
+    with open(logp) as f:
+        recs = [json.loads(l) for l in f]
+    resumed = [r for r in recs if "resumed_from" in r]
+    # the later of the two files; at a tie (the last epoch was the best) the
+    # best file, as in the JAX package
+    assert len(resumed) == 1 and resumed[0]["resumed_from"] in (ck, ck + ".last")
+    assert resumed[0]["start_epoch"] == 2
+    after = recs[recs.index(resumed[0]):]
+    assert [r["epoch"] for r in after if "elapsed" in r] == [2]
+    assert any("batch_offset" in r for r in after)
+    assert any("resumed_best_metric" in r for r in after)
+    assert _capture(capsys)[-1] == {"checkpoint": ck + ".last"}

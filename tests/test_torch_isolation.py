@@ -23,6 +23,8 @@ def test_importing_the_port_loads_no_jax_module():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import tpu_sage_torch, tpu_sage_torch.train.trainer, tpu_sage_torch.data.synthetic\n"
+        "import tpu_sage_torch.cli, tpu_sage_torch.export, tpu_sage_torch.nn.full_graph\n"
+        "import tpu_sage_torch.train.checkpoint\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'tpu_sage'))\n"
         "print(','.join(bad))\n"

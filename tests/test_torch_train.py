@@ -178,8 +178,7 @@ def test_config_fields_match_reference():
 
 @pytest.mark.parametrize("kw", [
     dict(aggregator_class="lstm"), dict(prep_class="node_embedding"),
-    dict(feature_int8=True), dict(fuse_first_layer=True), dict(exact_val=True),
-    dict(save_best=True),
+    dict(feature_int8=True), dict(fuse_first_layer=True),
 ])
 def test_unported_options_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -7,13 +7,16 @@ mirrors the reference module for module (``graph/``, ``data/``, ``sample/``,
 find.
 
 Ported so far: supervised training with the ``mean`` aggregator, ``identity``
-prep and dense padded adjacency — the path ``fit()`` runs. Its four hot
-functions (column select, row gather, gather + fanout mean, mean + projection)
-are hand-written CUDA kernels for ``sm_90a`` (``kernels/csrc``), built with
-``nvcc`` on first use; on CPU tensors each wrapper runs its plain PyTorch
-version instead.
+prep and dense padded adjacency — the path ``fit()`` runs — and the serving
+path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
+exact full-graph inference (``nn/full_graph``), the exporter (``export``)
+and the CLI (``cli``). The hot functions (sampler hop, column select, row
+gather, gather + fanout mean, mean + projection) are hand-written CUDA
+kernels for ``sm_90a`` (``kernels/csrc``), built with ``nvcc`` on first use;
+on CPU tensors each wrapper runs its plain PyTorch version instead.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu`` for the CLI and the exporter).
 """
 
 __version__ = "0.1.0"

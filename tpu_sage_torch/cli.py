@@ -1,0 +1,317 @@
+"""CLI entry point (counterpart of ``tpu_sage/cli.py``), with the same flag
+names.
+
+Usage::
+
+    python -m tpu_sage_torch.cli --problem-path data/cora/problem.h5 \\
+        --aggregator-class mean --n-train-samples 25,10 --epochs 10
+
+    # no dataset files? generate a synthetic problem; --device cpu runs on
+    # the CPU with the kernels' plain versions
+    python -m tpu_sage_torch.cli --synthetic sbm --epochs 10 --device cpu
+
+The run is on the CUDA card unless ``--device cpu`` is given; without a card
+``--device cuda`` exits 2, and nothing falls back to the CPU. Flags of paths
+not ported yet exit 2 naming their ROADMAP item. ``--gather-form``,
+``--gather-form-deep`` and ``--gather-chunks`` go into the config and change
+nothing on the port. The reference's capacity advice on running out of
+device memory is not ported (ROADMAP Queue 1 item 15): the error propagates.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+AGGREGATORS = ("mean", "max_pool", "mean_pool", "lstm", "attention", "gcn")
+PREPS = ("identity", "linear", "node_embedding")
+
+
+def parse_args(argv=None):
+    # allow_abbrev=False: --config override detection scans the raw argv for
+    # exact flag spellings, so an abbreviation must not parse silently
+    ap = argparse.ArgumentParser(description="tpu_sage_torch trainer", allow_abbrev=False)
+    ap.add_argument("--config", default=None,
+                    help="TrainConfig preset json (see configs/); explicit "
+                         "flags override preset values")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--problem-path", help="path to problem.h5")
+    src.add_argument("--synthetic", choices=["sbm", "reddit-shaped"],
+                     help="generate a synthetic problem instead of loading one")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where to train (default cuda; cpu runs the kernels' "
+                         "plain PyTorch versions)")
+    ap.add_argument("--aggregator-class", default="mean",
+                    help="mean|max_pool|mean_pool|lstm|attention|gcn")
+    ap.add_argument("--prep-class", default="identity",
+                    help="identity|linear|node_embedding")
+    ap.add_argument("--n-train-samples", default="25,10")
+    ap.add_argument("--n-val-samples", default="25,10")
+    ap.add_argument("--output-dims", default="128,128")
+    ap.add_argument("--batch-size", type=int, default=256)
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--lr-init", type=float, default=0.01)
+    ap.add_argument("--lr-schedule", default="constant",
+                    help="constant|linear|cyclical|sgdr")
+    ap.add_argument("--weight-decay", type=float, default=0.0)
+    ap.add_argument("--optimizer", default="adam", choices=["adam", "sgd"])
+    ap.add_argument("--seed", type=int, default=123)
+    ap.add_argument("--no-normalize", action="store_true",
+                    help="skip final L2 normalization")
+    ap.add_argument("--combine", default="concat", choices=["concat", "add"])
+    ap.add_argument("--checkpoint-path", default=None,
+                    help="save params+opt state here at end (and resume if present)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="also checkpoint to --checkpoint-path every N epochs "
+                         "mid-run (a crash loses at most N epochs)")
+    ap.add_argument("--no-eval", action="store_true", help="skip per-epoch validation")
+    ap.add_argument("--patience", type=int, default=None,
+                    help="early stopping: stop after N epochs without "
+                         "val-metric improvement (default off)")
+    ap.add_argument("--save-best", action="store_true",
+                    help="write --checkpoint-path only on val improvement "
+                         "(the file always holds the best-so-far state)")
+    ap.add_argument("--exact-val", action="store_true",
+                    help="validate with exact full-graph layer-wise inference")
+    ap.add_argument("--exact-val-every", type=int, default=None,
+                    help="run the exact full-graph validation every K epochs "
+                         "(sampled in between; final epoch and test always "
+                         "exact). Implies --exact-val; default 1")
+    ap.add_argument("--val-interval", type=int, default=None,
+                    help="also validate every N train batches (reference-style)")
+    ap.add_argument("--partitioned", action="store_true",
+                    help="node-sharded multi-device training (not ported yet)")
+    ap.add_argument("--halo", default=None,
+                    choices=["auto", "measured", "exact", "ring", "pipelined",
+                             "bucketed", "hier2d"],
+                    help="halo-exchange implementation for --partitioned (not ported yet)")
+    ap.add_argument("--halo-capacity-factor", type=float, default=None)
+    ap.add_argument("--halo-chunks", type=int, default=None)
+    ap.add_argument("--halo-measure-steps", type=int, default=None)
+    ap.add_argument("--fuse-first-layer", action="store_true",
+                    help="whole-table projection first layer (not ported yet)")
+    ap.add_argument("--gather-form", default=None,
+                    choices=["masked", "plain", "masked_chunked"],
+                    help="TPU gather lowering; recorded in the config, no "
+                         "effect on the port")
+    ap.add_argument("--gather-form-deep", default=None, choices=["masked", "plain"],
+                    help="recorded in the config, no effect on the port")
+    ap.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16"],
+                    help="matmul/feature-table dtype (default float32; "
+                         "bfloat16 halves the resident feature table and "
+                         "the gathered bytes)")
+    ap.add_argument("--gather-chunks", type=int, default=None,
+                    help="recorded in the config, no effect on the port")
+    ap.add_argument("--fuse-last", default=None, choices=["auto", "off", "all"],
+                    help="deepest-level fused gather+summary (default auto)")
+    ap.add_argument("--csr-adjacency", action="store_true",
+                    help="CSR adjacency on the device (not ported yet)")
+    ap.add_argument("--feature-int8", action="store_true",
+                    help="int8 features with per-column scales (not ported yet)")
+    ap.add_argument("--reorder", default=None, choices=["degree", "locality"],
+                    help="node reordering before partitioning (not ported yet)")
+    ap.add_argument("--unsupervised", action="store_true",
+                    help="skip-gram negative-sampling objective (not ported yet)")
+    ap.add_argument("--walk-length", type=int, default=3)
+    ap.add_argument("--n-negatives", type=int, default=10)
+    ap.add_argument("--probe-every", type=int, default=0)
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="torch.autograd.set_detect_anomaly(True)")
+    ap.add_argument("--log-path", default=None,
+                    help="also append metric records to this JSONL file")
+    ap.add_argument("--synthetic-nodes", type=int, default=2708)
+    ap.add_argument("--synthetic-classes", type=int, default=7)
+    ap.add_argument("--synthetic-feat-dim", type=int, default=64)
+    ap.add_argument("--synthetic-task", default="classification")
+    return ap.parse_args(argv)
+
+
+def _parse_ints(s: str):
+    return tuple(int(x) for x in s.split(",") if x.strip())
+
+
+def _unported_flag(args):
+    """``(flag, ROADMAP Queue 1 item)`` of the first flag given whose path is
+    not ported yet, else None."""
+    for given, flag, item in (
+            (args.partitioned, "--partitioned", 14),
+            (args.halo is not None, "--halo", 14),
+            (args.halo_capacity_factor is not None, "--halo-capacity-factor", 14),
+            (args.halo_chunks is not None, "--halo-chunks", 14),
+            (args.halo_measure_steps is not None, "--halo-measure-steps", 14),
+            (args.reorder is not None, "--reorder", 14),
+            (args.unsupervised, "--unsupervised", 12),
+            (args.csr_adjacency, "--csr-adjacency", 11),
+            (args.feature_int8, "--feature-int8", 10),
+            (args.fuse_first_layer, "--fuse-first-layer", 13)):
+        if given:
+            return flag, item
+    return None
+
+
+def cuda_missing(device: str) -> bool:
+    """True, after printing why, when ``device`` is cuda and there is no card."""
+    import torch
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("error: --device cuda needs a CUDA card (torch.cuda.is_available() is "
+              "false); pass --device cpu to run on the CPU", file=sys.stderr)
+        return True
+    return False
+
+
+def main(argv=None):
+    raw_argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+
+    fanouts = _parse_ints(args.n_train_samples)
+    val_fanouts = _parse_ints(args.n_val_samples)
+    output_dims = _parse_ints(args.output_dims)
+    if not (len(fanouts) == len(val_fanouts) == len(output_dims)):
+        print(
+            f"error: --n-train-samples/--n-val-samples/--output-dims must have "
+            f"matching lengths (got {len(fanouts)}/{len(val_fanouts)}/{len(output_dims)})",
+            file=sys.stderr,
+        )
+        return 2
+    unported = _unported_flag(args)
+    if unported:
+        print(f"error: {unported[0]} is not ported yet (ROADMAP Queue 1 item {unported[1]})",
+              file=sys.stderr)
+        return 2
+
+    # late imports keep --help fast
+    import torch
+
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import synthetic_problem
+    from tpu_sage_torch.nn.aggregators import aggregator_lookup
+    from tpu_sage_torch.nn.preps import prep_lookup
+    from tpu_sage_torch.train.lr import LRSchedule
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    for name, known, ported in (("--aggregator-class", AGGREGATORS, aggregator_lookup),
+                                ("--prep-class", PREPS, prep_lookup)):
+        val = getattr(args, name.strip("-").replace("-", "_"))
+        if val not in known:
+            print(f"error: {name} {val!r} unknown; choose from {sorted(known)}",
+                  file=sys.stderr)
+            return 2
+        if val not in ported:
+            print(f"error: {name} {val!r} is not ported yet (ROADMAP Queue 1 item 8)",
+                  file=sys.stderr)
+            return 2
+    if args.lr_schedule not in LRSchedule.lookup:
+        print(
+            f"error: --lr-schedule {args.lr_schedule!r} unknown; "
+            f"choose from {sorted(LRSchedule.lookup)}",
+            file=sys.stderr,
+        )
+        return 2
+    if cuda_missing(args.device):
+        return 2
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+
+    if args.synthetic:
+        problem = synthetic_problem(args.synthetic, args.synthetic_nodes,
+                                    args.synthetic_classes, args.synthetic_feat_dim,
+                                    seed=args.seed, task=args.synthetic_task)
+    else:
+        problem = NodeProblem.from_h5(args.problem_path)
+
+    flag_values = {
+        "aggregator_class": args.aggregator_class,
+        "prep_class": args.prep_class,
+        "n_train_samples": fanouts,
+        "n_val_samples": val_fanouts,
+        "output_dims": output_dims,
+        "batch_size": args.batch_size,
+        "epochs": args.epochs,
+        "lr_init": args.lr_init,
+        "lr_schedule": args.lr_schedule,
+        "weight_decay": args.weight_decay,
+        "optimizer": args.optimizer,
+        "seed": args.seed,
+        "combine": args.combine,
+        "normalize": not args.no_normalize,
+    }
+    # flags without a preset-overriding default: they apply whenever given
+    given = {k: v for k, v in (("gather_form", args.gather_form),
+                               ("gather_form_deep", args.gather_form_deep),
+                               ("compute_dtype", args.compute_dtype),
+                               ("gather_chunks", args.gather_chunks),
+                               ("fuse_last", args.fuse_last),
+                               ("exact_val_every", args.exact_val_every),
+                               ("patience", args.patience)) if v is not None}
+    if args.exact_val or args.exact_val_every is not None:
+        given["exact_val"] = True
+    if args.save_best:
+        given["save_best"] = True
+    if args.config:
+        # the preset is the base; flags PRESENT ON THE COMMAND LINE override
+        # it (read from the raw argv, so a flag given at its default value
+        # still counts as explicit)
+        explicit = {a.split("=", 1)[0].lstrip("-").replace("-", "_")
+                    for a in raw_argv if a.startswith("--")}
+        override_keys = {
+            "aggregator_class", "prep_class", "batch_size", "epochs", "lr_init",
+            "lr_schedule", "weight_decay", "optimizer", "seed", "combine",
+            "n_train_samples", "n_val_samples", "output_dims",
+        }
+        overrides = {k: flag_values[k] for k in override_keys & explicit}
+        if args.no_normalize:
+            overrides["normalize"] = False
+        config = TrainConfig.from_json(args.config).replace(**overrides, **given)
+    else:
+        config = TrainConfig(**flag_values, **given)
+    print(json.dumps({
+        "task": problem.task, "n_nodes": problem.n_nodes,
+        "feat_dim": problem.feats_dim, "n_classes": problem.n_classes,
+        "config": {k: (list(v) if isinstance(v, tuple) else v)
+                   for k, v in config.__dict__.items()},
+    }), flush=True)
+
+    if args.checkpoint_every > 0 and not args.checkpoint_path:
+        print("error: --checkpoint-every requires --checkpoint-path", file=sys.stderr)
+        return 2
+    if not args.log_path:
+        return _run_fit(args, problem, config, None)
+    with open(args.log_path, "a") as logf:
+        def log(rec):
+            print(json.dumps(rec), flush=True)
+            logf.write(json.dumps(rec) + "\n")
+            logf.flush()
+
+        return _run_fit(args, problem, config, log)
+
+
+def _run_fit(args, problem, config, log):
+    """Supervised single-device training, then the final checkpoint (or,
+    under --save-best, the final state in the ``.last`` sibling when
+    --checkpoint-every is set: the best state is already in the path)."""
+    from tpu_sage_torch.train.checkpoint import save_checkpoint
+    from tpu_sage_torch.train.trainer import fit
+
+    _, state, _ = fit(
+        problem, config, eval_every_epoch=not args.no_eval,
+        resume_from=args.checkpoint_path, log=log,
+        val_interval_batches=args.val_interval,
+        checkpoint_every=args.checkpoint_every,
+        device=args.device,
+    )
+    if args.checkpoint_path:
+        path = None
+        if not args.save_best:
+            path = args.checkpoint_path
+        elif args.checkpoint_every > 0:
+            path = args.checkpoint_path + ".last"
+        if path:
+            save_checkpoint(path, state, config=config)
+            print(json.dumps({"checkpoint": path}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -170,3 +170,16 @@ def _bench_graph_store(adj, feats, targets, folds, n_classes) -> GraphStore:
         feats=feats, targets=targets, folds=folds,
         task="classification", n_classes=n_classes,
     )
+
+
+def synthetic_problem(kind: str, n_nodes: int, n_classes: int, feat_dim: int, seed: int,
+                      task: str = "classification") -> NodeProblem:
+    """The CLI's and the exporter's ``--synthetic`` problem: ``"sbm"`` (an
+    ``sbm_store``) or ``"reddit-shaped"`` (a ``bench_store`` of ``n_nodes``;
+    its classes, width and degree are Reddit's)."""
+    if kind == "sbm":
+        return NodeProblem(sbm_store(n_nodes=n_nodes, n_classes=n_classes, feat_dim=feat_dim,
+                                     task=task, seed=seed))
+    if kind == "reddit-shaped":
+        return NodeProblem(bench_store(n_nodes=n_nodes, seed=seed))
+    raise ValueError(f"unknown synthetic problem {kind!r}; expected 'sbm' or 'reddit-shaped'")

@@ -103,6 +103,7 @@ class GSSupervised(torch.nn.Module):
         if fuse_last not in ("auto", "off", "all"):
             raise ValueError(f"unknown fuse_last: {fuse_last!r}")
         self.layer_specs = tuple(layer_specs)
+        self.aggregator_class = aggregator_class
         self.normalize = normalize
         self.fuse_last = fuse_last
         self.prep = prep_lookup[prep_class]()

@@ -25,8 +25,10 @@ import numpy as np
 import torch
 
 from tpu_sage_torch.graph.graph_data import DeviceGraph
+from tpu_sage_torch.nn.full_graph import embed_all_nodes, exact_supported
 from tpu_sage_torch.nn.model import GSSupervised, default_layer_specs
 from tpu_sage_torch.sample.sampler import sample_tree
+from tpu_sage_torch.train.checkpoint import BestTracker, maybe_checkpoint, resume_state
 from tpu_sage_torch.train.losses import loss_lookup
 from tpu_sage_torch.train.lr import LRSchedule
 from tpu_sage_torch.train.metrics import metric_lookup
@@ -119,8 +121,6 @@ def check_ported(config: TrainConfig) -> None:
         (config.prep_class != "identity", f"prep {config.prep_class!r}", "Queue 1 item 8"),
         (config.feature_int8, "feature_int8", "Queue 1 item 10"),
         (config.fuse_first_layer, "fuse_first_layer", "Queue 1 item 13"),
-        (config.exact_val, "exact_val", "Queue 1 item 9"),
-        (config.save_best, "save_best (checkpoints)", "Queue 1 item 7"),
     ]
     for asked, what, item in missing:
         if asked:
@@ -131,6 +131,25 @@ def check_ported(config: TrainConfig) -> None:
         raise ValueError(f"unknown optimizer: {config.optimizer}")
     if config.lr_schedule not in LRSchedule.lookup:
         raise ValueError(f"unknown lr_schedule: {config.lr_schedule!r}")
+
+
+def fold_metric_np(task: str, logits: np.ndarray, targets: np.ndarray) -> float:
+    """Fold metric from full-graph logits on the host, with the definitions
+    of the masked eval (``Trainer.eval_fold``): accuracy, micro-F1, negated
+    MSE or negated MAE."""
+    if task == "classification":
+        return float((logits.argmax(-1) == targets.astype(np.int64)).mean())
+    if task == "multilabel_classification":
+        preds = (logits > 0).astype(np.float64)
+        t = targets.astype(np.float64)
+        tp = float((preds * t).sum())
+        fp = float((preds * (1 - t)).sum())
+        fn = float(((1 - preds) * t).sum())
+        return 2 * tp / max(2 * tp + fp + fn, 1e-12)
+    err = logits - targets.astype(logits.dtype)
+    if task == "regression":
+        return float(-(err ** 2).mean())
+    return float(-np.abs(err).mean())
 
 
 def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
@@ -185,8 +204,10 @@ def build_optimizer(config: TrainConfig, params, lr: float) -> torch.optim.Optim
 
 @dataclasses.dataclass
 class TrainState:
-    """What a step changes besides the model's parameters."""
+    """What a step changes: the model's parameters, the optimizer's state,
+    the step counter and the sampling generator."""
 
+    model: GSSupervised
     optimizer: torch.optim.Optimizer
     step: int
     generator: torch.Generator  # sampling and epoch permutations, on the device
@@ -222,7 +243,7 @@ class Trainer:
         self.model.to(graph.device)
         gen = torch.Generator(device=graph.device).manual_seed(self.config.seed + 2)
         opt = build_optimizer(self.config, self.model.parameters(), self._lr_fn(0))
-        return TrainState(optimizer=opt, step=0, generator=gen)
+        return TrainState(model=self.model, optimizer=opt, step=0, generator=gen)
 
     def train_step(
         self,
@@ -349,12 +370,27 @@ def fit(
     config: TrainConfig,
     log: Optional[Callable[[Dict], None]] = None,
     eval_every_epoch: bool = True,
+    resume_from: Optional[str] = None,
+    val_interval_batches: Optional[int] = None,
+    checkpoint_every: int = 0,
     device: str | torch.device = "cuda",
 ) -> Tuple[Trainer, TrainState, list]:
     """End-to-end training on a NodeProblem: per-epoch training over the train
-    fold with the per-batch LR, sampled validation on the full graph with the
-    val fanouts, one JSON metric line per epoch, and the final test metric.
-    ``device="cuda"`` without a card raises; nothing falls back to the CPU."""
+    fold with the per-batch LR, validation on the full graph, one JSON metric
+    line per epoch, and the final test metric.
+
+    ``resume_from``: a checkpoint path. If it (or its ``.last`` sibling)
+    exists, training restarts from it at the epoch after its step;
+    ``checkpoint_every`` > 0 also writes it every N epochs, and
+    ``config.save_best`` writes it on every val improvement instead (the
+    periodic writes then go to ``.last``). ``val_interval_batches``: each
+    epoch runs in segments of that many batches, drawn from a host shuffle
+    of the fold, with a validation after each. ``config.exact_val``:
+    validation by exact full-graph inference (``nn/full_graph.py``) on the
+    compute-dtype table, every ``exact_val_every``-th epoch and the last,
+    sampled in between; ``patience`` and ``save_best`` then compare exact
+    epochs only. ``device="cuda"`` without a card raises; nothing falls back
+    to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA device; pass device='cpu' for the CPU")
@@ -369,44 +405,83 @@ def fit(
     steps_per_epoch = max(1, len(train_ids) // config.batch_size)
     model = build_model(config, problem.n_nodes, problem.n_classes, problem.feats_dim)
     trainer = Trainer(model, config, steps_per_epoch, task=problem.task)
+    use_exact_val = config.exact_val and exact_supported(model)
+    if config.exact_val and not use_exact_val:
+        log({"note": "exact_val unsupported for this aggregator; "
+                     "falling back to sampled validation"})
     fdt = COMPUTE_DTYPES[config.compute_dtype]
     graph_train = problem.device_graph(train=True, dtype=fdt, device=device)
+
+    def get_graph_full() -> DeviceGraph:
+        # uploaded on first use: a run without validation never holds it
+        return problem.device_graph(train=False, dtype=fdt, device=device)
+
     state = trainer.init_state(graph_train)
+    state, start_epoch = resume_state(state, resume_from, steps_per_epoch, log)
+    tracker = BestTracker(config, resume_from, log)
 
     fold_ids = torch.as_tensor(train_ids, dtype=torch.int32, device=device)
     fold_targets = graph_train.targets[fold_ids.long()]
     val_ids = problem.folds["val"]
 
-    def eval_fold_ids(ids: np.ndarray) -> float:
-        graph_full = problem.device_graph(train=False, dtype=fdt, device=device)
+    def eval_fold_ids(ids: np.ndarray, exact: bool = True) -> float:
+        if use_exact_val and exact:
+            logits = embed_all_nodes(model, get_graph_full(), with_head=True)
+            logits = logits[torch.as_tensor(ids, device=device)].cpu().numpy()
+            return fold_metric_np(problem.task, logits, problem.store.targets[ids])
         gen = torch.Generator(device=device).manual_seed(config.seed + 1)
-        return trainer.evaluate(graph_full, ids, problem.store.targets[ids], gen)
+        return trainer.evaluate(get_graph_full(), ids, problem.store.targets[ids], gen)
+
+    def exact_this_epoch(epoch: int) -> bool:
+        """exact_val_every thinning: exact on every K-th epoch and the last."""
+        k = max(1, config.exact_val_every)
+        return (epoch + 1) % k == 0 or epoch == config.epochs - 1
+
+    def validate(rec: dict, exact: bool = True) -> dict:
+        if len(val_ids):
+            rec["val_metric"] = eval_fold_ids(val_ids, exact=exact)
+        return rec
 
     history = []
-    best, stale = None, 0
-    for epoch in range(config.epochs):
+    for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
-        state, train_metrics = trainer.train_epoch(state, graph_train, fold_ids, fold_targets)
+        if val_interval_batches:
+            # segments of a fresh whole-epoch shuffle, drawn on the host with
+            # the JAX package's numpy call, so segment membership matches it
+            ep_perm = torch.as_tensor(np.random.default_rng(
+                config.seed * 1_000_003 + epoch).permutation(len(train_ids)), device=device)
+            ep_ids, ep_tgt = fold_ids[ep_perm], fold_targets[ep_perm]
+            seg = val_interval_batches * config.batch_size
+            losses, last_lr = [], trainer._lr_fn(state.step)
+            for start in range(0, len(train_ids) - config.batch_size + 1, seg):
+                state, m = trainer.train_epoch(state, graph_train, ep_ids[start:start + seg],
+                                               ep_tgt[start:start + seg])
+                losses.append(float(m["loss"]))
+                last_lr = m["lr"]
+                log(validate({"epoch": epoch, "batch_offset": start // config.batch_size,
+                              "train_loss": losses[-1]}, exact=exact_this_epoch(epoch)))
+            train_metrics = {"loss": np.mean(losses) if losses else float("nan"),
+                             "lr": last_lr}
+        else:
+            state, train_metrics = trainer.train_epoch(state, graph_train, fold_ids,
+                                                       fold_targets)
         rec = {
             "epoch": epoch,
             "train_loss": float(train_metrics["loss"]),
             "lr": float(train_metrics["lr"]),
             "elapsed": round(time.time() - t0, 4),
         }
-        if eval_every_epoch and len(val_ids):
-            rec["val_metric"] = eval_fold_ids(val_ids)
+        exact_now = exact_this_epoch(epoch)
+        if eval_every_epoch:
+            rec = validate(rec, exact=exact_now)
         history.append(rec)
         log(rec)
-        # early stopping on the val metric (higher is better throughout)
-        val = rec.get("val_metric")
-        if val is not None:
-            if best is None or val > best:
-                best, stale = val, 0
-            else:
-                stale += 1
-                if config.patience and stale >= config.patience:
-                    log({"early_stop": True, "best_val_metric": best, "stale_epochs": stale})
-                    break
+        maybe_checkpoint(state, resume_from, checkpoint_every, epoch, log, config=config)
+        # with exact_val_every > 1 the sampled in-between metrics are
+        # informational: the tracker compares exact epochs only
+        tracked = rec.get("val_metric") if (not use_exact_val or exact_now) else None
+        if tracker.update(tracked, state):
+            break
 
     test_ids = problem.folds.get("test", np.array([], dtype=np.int64))
     if eval_every_epoch and len(test_ids):
