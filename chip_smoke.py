@@ -49,8 +49,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel, the export ``gather_rows`` 2 × 57 times and nothing else; prints
    the ms per exact pass on the f32 and bf16 tables, nodes/s, the gathers'
    bound and a profile of one pass, after the card's name and power limit;
-7. prints the kernels line (the exact-inference gathers among
-   ``gather_rows``'s cases, launches by path), then ``{"ok": true,
+7. the other aggregators and preps: ``gather_rows`` and ``sample_hop``
+   bitwise and timed at their new shapes (the deepest level gathered whole;
+   Pubmed- and PPI-shaped trees' levels from f32 and bf16 tables, rows of
+   2,000 / 1,000 / 200 / 100 bytes; exact inference's 128- and 512-wide f32
+   rows; ``mean_project`` on the linear and node-embedding preps' f32 rows
+   under a bf16 W); sampled bf16 logits card vs CPU for each new aggregator
+   and prep; exact logits card vs CPU for gcn, the pools and attention on a
+   20,000-node full-width store with degrees 0-128; then, with the launch
+   counters from 0, training runs whose launches per step must be exact
+   (gcn, max_pool, mean_pool and attention at phase 5's configuration,
+   ``agg_hidden_dim`` 512, and gcn again on a Reddit-shaped SBM store, where
+   it learns; ``configs/pubmed_maxpool.json`` and
+   ``configs/ppi_lstm.json`` unchanged on SBM stand-ins of Pubmed and PPI;
+   the linear and node-embedding preps), each with its loss finite and
+   falling, a sampled val metric, ms/step, edges/s and busy share; and each
+   new aggregator's exact pass on the f32 and bf16 tables (median of 3,
+   nodes/s, busy share, kernel time by name);
+8. prints each phase's wall time and the kernels line (the off-path cases
+   among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
 
@@ -65,14 +82,33 @@ BATCH, FANOUTS, DIMS = 512, (25, 10), (128, 128)
 TRAIN_STEPS, WARMUP_STEPS, PROFILE_STEPS = 30, 3, 5
 MEAN_PROJECT_TOL = (2.0 ** -7, 1e-4)  # rtol (one bf16 ulp), atol as a share of the output's scale
 EVAL_NODES = 4096
-PER_STEP = {"select_columns": 0, "sample_hop": 2, "gather_rows": 2, "gather_rows_blockspec": 0,
-            "gather_fanout_mean": 1, "mean_project": 2}
 SHIFT_ROWS = 4096  # rows of the small tables that check every realignment shift
 EXACT_CHUNK = 4096  # exact inference's node chunk (the exporter's default)
 SERVING_NODES = 232_965  # the serving path's Reddit-shaped store
 CHECK_NODES = 20_000  # phase 6's card-against-CPU store, at full width and degree
 EXACT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8}  # x max|out|, as tests/test_torch_full_graph.py
 PASS_REPS = 3
+# phase 7: the other aggregators and preps
+NEW_AGGREGATORS = ("gcn", "max_pool", "mean_pool", "attention")
+AGG_HIDDEN = 512  # agg_hidden_dim: the pools' MLP width, attention's key width
+EMBEDDING_DIM = 64  # TrainConfig's embedding_dim: the linear prep's width, the embedding's
+AGG_STEPS, PRESET_STEPS, PREP_STEPS = 20, 30, 5
+# gcn trains on bench_store and on a Reddit-shaped SBM store: on
+# bench_store's uniform random neighbors the root's own row reaches gcn's
+# 2-layer embedding at 1/26^2 weight (gcn has no self branch) and its loss
+# stays near ln 41, in the JAX package as in the port (tests/test_torch_train.py,
+# test_gcn_stays_at_chance_on_bench_store_in_both_packages); on the SBM
+# store, whose neighbors mostly share the root's class, it learns
+REDDIT_SBM = dict(n_nodes=232_965, feat_dim=602, n_classes=41, avg_degree=12, max_degree=128,
+                  seed=3)
+# SBM stand-ins of the published graphs (Planetoid's Pubmed; GraphSAGE's PPI),
+# at their node, feature and label counts; avg_degree draws that many edges
+# per node, symmetrised: about 4.5 and 28.8 neighbors per node
+PUBMED = dict(n_nodes=19_717, feat_dim=500, n_classes=3, avg_degree=2, max_degree=32, seed=5)
+PPI = dict(n_nodes=56_944, feat_dim=50, n_classes=121, avg_degree=14, max_degree=64,
+           task="multilabel_classification", seed=6)
+SAMPLED_ROOTS = 32
+SAMPLED_TOL = 3e-2  # x max|logit|, phase 4's bf16 limit
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -95,6 +131,24 @@ SOURCES = {
     "mean_project": ("tpu_sage_torch/kernels/csrc/mean_project.cu",
                      "tpu_sage/kernels/mean_project.py:56"),
 }
+
+
+def per_step_launches(agg, prep, fuse_last):
+    """Kernel launches of one training step (``encode`` with the fused
+    sampler): 2 hops; the levels' gathers, the deepest level summarised by
+    ``gather_fanout_mean`` when it is fused under mean or gcn (else gathered
+    whole, fused or not); ``mean_project`` for each mean pairing of an
+    unreduced neighborhood (2 when the deepest level is fused, else 3; a
+    prep's f32 rows under bf16 go through it too)."""
+    fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
+    summary_kernel = fused and agg in ("mean", "gcn")
+    mean_project = 0 if agg != "mean" else 2 if fused else 3
+    return {"select_columns": 0, "sample_hop": 2, "gather_rows": 2 if summary_kernel else 3,
+            "gather_rows_blockspec": 0, "gather_fanout_mean": int(summary_kernel),
+            "mean_project": mean_project}
+
+
+PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
 
 
 def log(*args):
@@ -139,7 +193,6 @@ def kernel_name(mangled):
 
 def phase_kernels(torch, np, graph, levels, peaks):
     """Phase 3: each kernel against its plain version at main-path shapes."""
-    from tpu_sage_torch.bench.timing import cuda_ms
     from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
                                         sample_hop, select)
     from tpu_sage_torch.sample.sampler import pack_adjacency
@@ -156,9 +209,8 @@ def phase_kernels(torch, np, graph, levels, peaks):
 
     def add(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=bf16_peak,
             tol=None, weight=1):
-        cases.append(dict(kernel=kernel, case=case, kernel_fn=kernel_fn, plain_fn=plain_fn,
-                          library_fn=library_fn, bytes=float(nbytes), flops=float(flops),
-                          peak=peak, tol=tol, weight=weight))
+        cases.append(kernel_case(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops,
+                                 peak, tol, weight))
 
     # sampler hops, fused: hop 1 (512 ids x 25) and hop 2 (12,800 ids x 10)
     # on the train graph. Bytes: the ids, each distinct 32-byte degree sector,
@@ -272,35 +324,7 @@ def phase_kernels(torch, np, graph, levels, peaks):
             x.numel() * 2 + w.numel() * 2 + b * DIMS[1] * 2,
             flops=2 * b * d * DIMS[1] + b * fo * d, tol=MEAN_PROJECT_TOL, weight=weight)
 
-    results = []
-    for c in cases:
-        out = c["kernel_fn"]()
-        torch.cuda.synchronize()
-        ref = c["plain_fn"]()
-        torch.cuda.synchronize()
-        err = (out.double() - ref.double()).abs().max().item()
-        if c["tol"] is None:
-            if not torch.equal(out, ref):
-                raise AssertionError(f"{c['kernel']} [{c['case']}] differs from its plain "
-                                     f"version (max abs err {err})")
-        else:
-            rtol, atol_of_scale = c["tol"]
-            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
-                                       atol=atol_of_scale * ref.float().abs().max().item())
-        ms = cuda_ms(c["kernel_fn"])
-        plain_ms = cuda_ms(c["plain_fn"])
-        library_ms = cuda_ms(c["library_fn"])
-        bound_bytes = c["bytes"] / bw * 1e3
-        bound_ops = c["flops"] / c["peak"] * 1e3
-        res = dict(kernel=c["kernel"], case=c["case"], weight=c["weight"],
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=max(bound_bytes, bound_ops),
-                   bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-                   bytes=c["bytes"])
-        results.append(res)
-        log(f"  {c['kernel']:<19} {c['case']:<52} err {err:.3g}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f}  library {library_ms:.4f}  bound {res['bound_ms']:.4f} "
-            f"({res['bound_by']})")
+    results = time_cases(torch, cases, bw)
 
     # edge cases the main path never produces: out-of-range ids and columns,
     # an f32 table, a ragged batch with W chunks in a ring, and the
@@ -349,6 +373,53 @@ def phase_kernels(torch, np, graph, levels, peaks):
     log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8), "
         "sample_hop at degree 0 and u near 1, f32 fanout mean (bitwise), ragged mean_project "
         "with a W ring, mean_project backward (bf16, f32): ok")
+    return results
+
+
+def kernel_case(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=1.0,
+                tol=None, weight=1):
+    """One timed case of ``kernel``: ``tol`` None asks for a bitwise match;
+    ``weight`` is its launches in one training step of the main path."""
+    return dict(kernel=kernel, case=case, kernel_fn=kernel_fn, plain_fn=plain_fn,
+                library_fn=library_fn, bytes=float(nbytes), flops=float(flops), peak=peak,
+                tol=tol, weight=weight)
+
+
+def time_cases(torch, cases, bw):
+    """Each case's kernel against its plain version (bitwise, or within its
+    ``tol``), then kernel, plain and library call timed L2-cold, and the
+    bound: the case's bytes at ``bw`` or its operations at its peak."""
+    from tpu_sage_torch.bench.timing import cuda_ms
+
+    results = []
+    for c in cases:
+        out = c["kernel_fn"]()
+        torch.cuda.synchronize()
+        ref = c["plain_fn"]()
+        torch.cuda.synchronize()
+        err = (out.double() - ref.double()).abs().max().item()
+        if c["tol"] is None:
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{c['kernel']} [{c['case']}] differs from its plain "
+                                     f"version (max abs err {err})")
+        else:
+            rtol, atol_of_scale = c["tol"]
+            torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                                       atol=atol_of_scale * ref.float().abs().max().item())
+        ms = cuda_ms(c["kernel_fn"])
+        plain_ms = cuda_ms(c["plain_fn"])
+        library_ms = cuda_ms(c["library_fn"])
+        bound_bytes = c["bytes"] / bw * 1e3
+        bound_ops = c["flops"] / c["peak"] * 1e3
+        res = dict(kernel=c["kernel"], case=c["case"], weight=c["weight"],
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
+                   bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                   bytes=c["bytes"])
+        results.append(res)
+        log(f"  {c['kernel']:<19} {c['case']:<52} err {err:.3g}  kernel {ms:.4f} ms  "
+            f"plain {plain_ms:.4f}  library {library_ms:.4f}  bound {res['bound_ms']:.4f} "
+            f"({res['bound_by']})")
     return results
 
 
@@ -636,6 +707,45 @@ def check_exact_card_vs_cpu(torch, np):
                     f"CPU max abs err {err:.3g} (limit {limit:.3g})")
 
 
+def exact_chunk_ids(torch, graph):
+    """``(ids, distinct rows)`` of each exact-inference chunk's masked
+    neighbor ids (id -1 past a node's degree)."""
+    cols = torch.arange(graph.adj.shape[1], dtype=torch.int32, device=graph.adj.device)
+    out = []
+    for start in range(0, graph.adj.shape[0], EXACT_CHUNK):
+        ids = torch.where(cols < graph.degrees[start:start + EXACT_CHUNK, None],
+                          graph.adj[start:start + EXACT_CHUNK], -1).reshape(-1)
+        out.append((ids.numel(), int(torch.unique(ids).numel())))
+    return out
+
+
+def time_exact_pass(torch, model, graph, row_bytes, bw):
+    """One exact pass (logits) on the card: the median of PASS_REPS host-clock
+    runs after a warm-up, nodes/s, the gathers' bound (``row_bytes``: the
+    bytes of the row each layer gathers per neighbor; the ids, each distinct
+    row read once, each row written) and a profile of one more pass."""
+    from tpu_sage_torch.nn.full_graph import embed_all_nodes
+
+    run = lambda: embed_all_nodes(model, graph, chunk=EXACT_CHUNK, with_head=True)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(PASS_REPS):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = sorted(times)[len(times) // 2]
+    kern, launches = device_profile(torch, run, 1)
+    gather_bytes = sum(4 * q + nd * row + q * row
+                       for q, nd in exact_chunk_ids(torch, graph) for row in row_bytes)
+    device_ms = sum(k[1] for k in kern)
+    return {"ms": ms, "ms_runs": times, "nodes_per_s": graph.adj.shape[0] / ms * 1e3,
+            "gather_bound_ms": gather_bytes / bw * 1e3, "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / ms, "kernel_launches": launches,
+            "top_kernels_ms": [[k[0][:80], k[1], k[2]] for k in kern[:6]]}
+
+
 def phase_serving(torch, np, smi, peaks):
     """Phase 6: the serving path. (a) exact inference, card against CPU;
     (b) the CLI trains at full width with checkpoints, exact validation and
@@ -658,7 +768,6 @@ def serving_path(torch, np, smi, peaks, tmp):
     from tpu_sage_torch import cli, export, kernels
     from tpu_sage_torch.data.problem import NodeProblem
     from tpu_sage_torch.data.synthetic import bench_store
-    from tpu_sage_torch.nn.full_graph import embed_all_nodes
     from tpu_sage_torch.train.checkpoint import read_best_metric
     from tpu_sage_torch.train.trainer import (COMPUTE_DTYPES, TrainConfig, build_model,
                                               fold_metric_np)
@@ -733,38 +842,313 @@ def serving_path(torch, np, smi, peaks, tmp):
     for label, dtype_name in (("export_f32_table", "float32"), ("fit_bf16_table", "bfloat16")):
         graph = problem.device_graph(train=False, dtype=COMPUTE_DTYPES[dtype_name],
                                      device="cuda")
-        run = lambda g=graph: embed_all_nodes(model, g, chunk=EXACT_CHUNK, with_head=True)  # noqa: E731
-        run()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(PASS_REPS):
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms = sorted(times)[len(times) // 2]
-        kern, launches = device_profile(torch, run, 1)
-        # the gathers' bound: ids, each distinct row read once, each row written
-        gather_bytes = 0.0
-        cols = torch.arange(graph.adj.shape[1], dtype=torch.int32, device="cuda")
-        for start in range(0, problem.n_nodes, EXACT_CHUNK):
-            ids = torch.where(cols < graph.degrees[start:start + EXACT_CHUNK, None],
-                              graph.adj[start:start + EXACT_CHUNK], -1).reshape(-1)
-            nd = int(torch.unique(ids).numel())
-            for row in (graph.feats.shape[1] * graph.feats.element_size(), 2 * DIMS[1] * 4):
-                gather_bytes += 4 * ids.numel() + nd * row + ids.numel() * row
-        passes[label] = {
-            "ms": ms, "ms_runs": times, "nodes_per_s": problem.n_nodes / ms * 1e3,
-            "gather_bound_ms": gather_bytes / peaks[0] * 1e3,
-            "device_kernel_ms": sum(k[1] for k in kern), "kernel_launches": launches,
-            "top_kernels_ms": [[k[0][:80], k[1], k[2]] for k in kern[:6]],
-        }
+        row = graph.feats.shape[1] * graph.feats.element_size()
+        passes[label] = time_exact_pass(torch, model, graph, (row, 2 * DIMS[1] * 4), peaks[0])
     log(smi)
     log(json.dumps({"serving_path": {
         "nodes": problem.n_nodes, "chunk": EXACT_CHUNK, "chunks_per_layer": n_chunks,
         "gather_rows_launches_per_pass": 2 * n_chunks, "exact_pass": passes,
         "export_wall_s": export_s, "cli_fit_wall_s_both_runs": fit_s}}))
     return {"cli_fit": fit_counts, "export": export_counts}
+
+
+def train_run(torch, np, label, problem, cfg, steps, warmup):
+    """``steps`` timed ``train_step``s of ``cfg`` on ``problem`` (after
+    ``warmup``), the launch counts from 0 checked per step exactly, the loss
+    finite and falling, a sampled val metric, and a profile of PROFILE_STEPS
+    more steps. Returns the run's record and its launch counts (train and
+    eval)."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.train.trainer import COMPUTE_DTYPES, Trainer, build_model
+
+    b = cfg.batch_size
+    train_ids = problem.folds["train"]
+    if len(train_ids) < (warmup + steps + PROFILE_STEPS) * b:
+        raise AssertionError(f"{label}: train fold too small for the run")
+    dtype = COMPUTE_DTYPES[cfg.compute_dtype]
+    model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+    trainer = Trainer(model, cfg, steps_per_epoch=len(train_ids) // b, task=problem.task)
+    graph = problem.device_graph(train=True, dtype=dtype, device="cuda")
+    state = trainer.init_state(graph)
+    perm = np.random.default_rng(5).permutation(train_ids)
+    batches = [torch.as_tensor(perm[i * b:(i + 1) * b], dtype=torch.int32, device="cuda")
+               for i in range(warmup + steps + PROFILE_STEPS)]
+    for ids in batches[:warmup]:
+        state, _ = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for ids in batches[warmup:warmup + steps]:
+        state, m = trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    train_counts = kernels.launch_counts()
+    want = per_step_launches(cfg.aggregator_class, cfg.prep_class, cfg.fuse_last)
+    if train_counts != {k: n * steps for k, n in want.items()}:
+        raise AssertionError(f"{label}: launches in {steps} steps {train_counts}, expected "
+                             f"{want} per step")
+    losses = torch.stack(losses).float().cpu().numpy()
+    third = max(1, steps // 3)
+    first, last = losses[:third].mean(), losses[-third:].mean()
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{label}: losses {losses} not finite and falling")
+    val_ids = problem.folds["val"][:EVAL_NODES]
+    val = trainer.evaluate(problem.device_graph(train=False, dtype=dtype, device="cuda"),
+                           val_ids, problem.store.targets[val_ids],
+                           torch.Generator(device="cuda").manual_seed(cfg.seed + 1))
+    if not 0.0 <= val <= 1.0:
+        raise AssertionError(f"{label}: val metric {val}")
+    counts = kernels.launch_counts()
+    it = iter(batches[warmup + steps:])
+
+    def step():
+        ids = next(it)
+        trainer.train_step(state, graph, ids, graph.targets[ids.long()])
+
+    kern, launches = device_profile(torch, step, PROFILE_STEPS)
+    ms_step = dt / steps * 1e3
+    edges = b * (cfg.n_train_samples[0] + cfg.n_train_samples[0] * cfg.n_train_samples[1])
+    device_ms = sum(k[1] for k in kern)
+    rec = {"run": label, "aggregator": cfg.aggregator_class, "prep": cfg.prep_class,
+           "compute_dtype": cfg.compute_dtype, "batch": b, "fanouts": list(cfg.n_train_samples),
+           "steps": steps, "ms_per_step": ms_step, "edges_per_s": edges * steps / dt,
+           "loss_first": float(first), "loss_last": float(last),
+           f"val_{'f1' if problem.task == 'multilabel_classification' else 'accuracy'}": val,
+           "launches_per_step": want, "device_kernel_ms_per_step": device_ms,
+           "device_busy_share": device_ms / ms_step if device_ms else None,
+           "kernel_launches_per_step": launches,
+           "top_kernels_ms_per_step": [[k[0][:80], k[1], k[2]] for k in kern[:5]]}
+    log(json.dumps({"aggregator_run": rec}))
+    return rec, counts
+
+
+def aggregator_config(agg, prep="identity", **kw):
+    """The Reddit-width training configuration of phase 5 with another
+    aggregator or prep (``agg_hidden_dim`` 512, ``fuse_last="auto"``)."""
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    return TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                       output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01, epochs=1,
+                       aggregator_class=agg, prep_class=prep, agg_hidden_dim=AGG_HIDDEN, **kw)
+
+
+def new_shape_cases(torch, graph, levels, stand_ins, peaks):
+    """Phase 7 (a): the kernels at this phase's new shapes, bitwise against
+    their plain versions and timed (weight 0: off the main path's step):
+    the deepest level gathered whole (q = 128,000 rows of 1,204 bytes); on
+    the Pubmed- and PPI-shaped stores, both sampler hops of a batch-256
+    tree and its deepest level's gather from the f32 and bf16 tables (rows
+    of 2,000 / 1,000 and 200 / 100 bytes); exact inference's gcn layer-1
+    rows (f32 128-wide, 512 bytes) and the pools' projected rows (f32
+    512-wide, 2,048 bytes) for one 4,096-node chunk; and ``mean_project``
+    on the f32 rows of the linear (64 wide) and node-embedding (602 + 64
+    wide) preps under a bf16 W, both layer-0 pairings of an unfused tree
+    (roots: x (512, 25, D); level 1: x (12,800, 10, D)), within
+    MEAN_PROJECT_TOL of its plain version."""
+    from tpu_sage_torch.kernels import gather, mean_project, sample_hop
+
+    cases = []
+
+    def add_gather(case, table, ids):
+        q, row, ids64 = ids.shape[0], table.shape[1] * table.element_size(), ids.long()
+        nd = int(torch.unique(ids).numel())
+        cases.append(kernel_case(
+            "gather_rows", f"{case} {str(table.dtype)[6:]} {tuple(table.shape)} q={q}",
+            lambda t=table, i=ids: gather.gather_rows(t, i, "zero"),
+            lambda t=table, i=ids: gather.gather_rows_reference(t, i, "zero"),
+            lambda t=table, i=ids64: t[i], 4 * q + nd * row + q * row, weight=0))
+
+    add_gather("deepest level whole", graph.feats, levels[2])
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for label in ("Pubmed-shaped", "PPI-shaped"):
+        problem = stand_ins[label]
+        g = problem.device_graph(train=True, device="cuda")
+        ids = torch.as_tensor(problem.folds["train"][:256], dtype=torch.int32, device="cuda")
+        for f in FANOUTS:
+            u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
+            ids64 = ids.long()
+            cols64 = sample_hop.hop_columns(u, g.degrees[ids64].clamp_min(1)).long()
+            sectors = int(torch.unique((ids64[:, None] * g.adj.shape[1] + cols64) // 8).numel())
+            cases.append(kernel_case(
+                "sample_hop", f"{label} ids ({ids.shape[0]},), u {tuple(u.shape)}, "
+                f"adj {tuple(g.adj.shape)}",
+                lambda i=ids, u=u, g=g: sample_hop.sample_hop(g.adj, g.degrees, i, u),
+                lambda i=ids, u=u, g=g: sample_hop.sample_hop_reference(g.adj, g.degrees, i,
+                                                                        u),
+                lambda i=ids64, c=cols64, g=g: g.adj[i[:, None], c],
+                4 * ids.shape[0] + 32 * int(torch.unique(ids64 // 8).numel()) + 32 * sectors
+                + 8 * u.numel(), weight=0))
+            ids = sample_hop.sample_hop(g.adj, g.degrees, ids, u).reshape(-1)
+        for dtype in (torch.float32, torch.bfloat16):
+            add_gather(f"{label} deepest level", problem.device_graph(
+                train=True, dtype=dtype, device="cuda").feats, ids)
+    n = graph.adj.shape[0]
+    cols = torch.arange(graph.adj.shape[1], dtype=torch.int32, device="cuda")
+    chunk_ids = torch.where(cols < graph.degrees[:EXACT_CHUNK, None],
+                            graph.adj[:EXACT_CHUNK], -1).reshape(-1)
+    for case, width in (("exact gcn layer 1", DIMS[1]), ("exact pool mlp rows", AGG_HIDDEN)):
+        add_gather(case, torch.relu(torch.randn((n, width), generator=gen, device="cuda")),
+                   chunk_ids)
+
+    feat_dim = graph.feats.shape[1]
+    prep_w = torch.randn((feat_dim, EMBEDDING_DIM), generator=gen, device="cuda") / feat_dim ** 0.5
+    for prep in ("linear", "node_embedding"):
+        for ids, fanout in ((levels[1], FANOUTS[0]), (levels[2], FANOUTS[1])):
+            rows = graph.feats[ids.long()].float()
+            emb = torch.randn((ids.shape[0], EMBEDDING_DIM), generator=gen, device="cuda")
+            x = (rows @ prep_w if prep == "linear"
+                 else torch.cat([rows, emb / EMBEDDING_DIM ** 0.5], 1))
+            x = x.view(-1, fanout, x.shape[1])
+            del rows, emb
+            b, f, d = x.shape
+            w = (torch.randn((d, DIMS[0]), generator=gen, device="cuda") / d ** 0.5).to(
+                torch.bfloat16)
+            cases.append(kernel_case(
+                "mean_project", f"{prep} prep x f32 {tuple(x.shape)}, W bf16 {tuple(w.shape)}",
+                lambda x=x, w=w: mean_project.mean_project(x, w),
+                lambda x=x, w=w: mean_project.mean_project_reference(x, w),
+                lambda x=x, w=w: x.mean(1).to(torch.bfloat16) @ w,
+                x.numel() * 4 + w.numel() * 2 + b * DIMS[0] * 2,
+                flops=2 * b * d * DIMS[0] + b * f * d, peak=peaks[1], tol=MEAN_PROJECT_TOL,
+                weight=0))
+    return time_cases(torch, cases, peaks[0])
+
+
+def check_sampled_card_vs_cpu(torch, problem, graph):
+    """Phase 7 (b): each new aggregator and prep, bf16, at full width on
+    SAMPLED_ROOTS roots' injected levels (sampled on the card), the same
+    parameters on the card and on the CPU's plain path: logits within
+    SAMPLED_TOL of their scale."""
+    import copy
+
+    from tpu_sage_torch.sample.sampler import sample_tree
+    from tpu_sage_torch.train.trainer import build_model
+
+    roots = torch.as_tensor(problem.folds["train"][:SAMPLED_ROOTS], dtype=torch.int32,
+                            device="cuda")
+    levels = sample_tree(graph.adj, graph.degrees, roots, FANOUTS,
+                         generator=torch.Generator(device="cuda").manual_seed(21))
+    feats_cpu = graph.feats.cpu()
+    for agg, prep in [(a, "identity") for a in NEW_AGGREGATORS + ("lstm",)] + [
+            ("mean", "linear"), ("mean", "node_embedding")]:
+        cfg = aggregator_config(agg, prep)
+        model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+        model.reset_parameters(torch.Generator().manual_seed(11))
+        want, got = (
+            copy.deepcopy(model).to(feats.device)([l.to(feats.device) for l in levels],
+                                                  feats).detach().float().cpu()
+            for feats in (feats_cpu, graph.feats))
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not (bool(torch.isfinite(got).all()) and err <= SAMPLED_TOL * scale):
+            raise AssertionError(f"sampled {agg}/{prep} logits: card vs CPU max abs err {err} "
+                                 f"> {SAMPLED_TOL} x {scale}")
+        log(f"  sampled {agg}/{prep} bf16 logits {tuple(got.shape)}: card vs CPU max abs err "
+            f"{err:.4g} (limit {SAMPLED_TOL * scale:.4g})")
+
+
+def check_exact_aggregators_card_vs_cpu(torch, np):
+    """Phase 7 (c): exact inference of each new aggregator on phase 6's
+    CHECK_NODES full-width store, its degrees redrawn in [0, 128] (every
+    97th node 0), so columns past a degree are masked and degree-0 nodes
+    self-loop; f32 and bf16 tables, logits, card against the CPU's plain
+    path within EXACT_TOL."""
+    import copy
+
+    from tpu_sage_torch.data.synthetic import bench_store
+    from tpu_sage_torch.nn.full_graph import embed_all_nodes
+    from tpu_sage_torch.train.trainer import COMPUTE_DTYPES, build_model
+
+    store = bench_store(n_nodes=CHECK_NODES, seed=1, cache_dir="0")
+    store.degrees[:] = np.random.default_rng(8).integers(0, store.adj.shape[1] + 1,
+                                                         store.n_nodes)
+    store.degrees[::97] = 0
+    for dtype_name, dtype in COMPUTE_DTYPES.items():
+        graphs = {dev: store.to_device(train=False, dtype=dtype, device=dev)
+                  for dev in ("cpu", "cuda")}
+        for agg in NEW_AGGREGATORS:
+            cfg = aggregator_config(agg).replace(compute_dtype=dtype_name)
+            model = build_model(cfg, store.n_nodes, store.n_classes, store.feat_dim)
+            model.reset_parameters(torch.Generator().manual_seed(6))
+            want = embed_all_nodes(model, graphs["cpu"], chunk=EXACT_CHUNK, with_head=True)
+            got = embed_all_nodes(copy.deepcopy(model).to("cuda"), graphs["cuda"],
+                                  chunk=EXACT_CHUNK, with_head=True).cpu()
+            limit = EXACT_TOL[dtype_name] * want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if not (bool(torch.isfinite(got).all()) and err <= limit):
+                raise AssertionError(f"exact {agg} logits, {dtype_name} table: card vs CPU max "
+                                     f"abs err {err} > {limit}")
+            log(f"  exact {agg:<9} logits {tuple(got.shape)}, {dtype_name} table, degrees "
+                f"0-128: card vs CPU max abs err {err:.3g} (limit {limit:.3g})")
+
+
+def phase_aggregators(torch, np, problem, graph, levels, smi, peaks):
+    """Phase 7: the other aggregators and preps. (a) kernels at their new
+    shapes; (b) sampled and (c) exact card against CPU; (d) training, with
+    the launch counters from 0: gcn, max_pool, mean_pool and attention at
+    phase 5's Reddit-width configuration (gcn again on a Reddit-shaped SBM
+    store, see REDDIT_SBM), ``configs/pubmed_maxpool.json`` and
+    ``configs/ppi_lstm.json`` unchanged on Pubmed- and PPI-shaped SBM
+    stores, and the linear and node-embedding preps; (e) the exact pass of
+    each new aggregator on the f32 and bf16 tables. Returns the kernel cases
+    and the launch counts of (d)."""
+    import os
+
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import sbm_store
+    from tpu_sage_torch.train.trainer import COMPUTE_DTYPES, TrainConfig, build_model
+
+    t0 = time.perf_counter()
+    stand_ins = {"Pubmed-shaped": NodeProblem(sbm_store(**PUBMED)),
+                 "PPI-shaped": NodeProblem(sbm_store(**PPI)),
+                 "Reddit-shaped SBM": NodeProblem(sbm_store(**REDDIT_SBM))}
+    log(f"  SBM stand-ins built in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {p.store.feats.shape}, {p.n_classes} {p.task} targets, max degree "
+                    f"{p.store.adj.shape[1]}" for k, p in stand_ins.items()))
+    results = new_shape_cases(torch, graph, levels, stand_ins, peaks)
+    check_sampled_card_vs_cpu(torch, problem, graph)
+    check_exact_aggregators_card_vs_cpu(torch, np)
+
+    total = {}
+
+    def run(label, prob, cfg, steps, warmup=WARMUP_STEPS):
+        rec, counts = train_run(torch, np, label, prob, cfg, steps, warmup)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return rec
+
+    runs = [run(f"{agg} on bench_store", problem, aggregator_config(agg), AGG_STEPS)
+            for agg in NEW_AGGREGATORS]
+    runs.append(run("gcn on Reddit-shaped SBM", stand_ins["Reddit-shaped SBM"],
+                    aggregator_config("gcn"), AGG_STEPS))
+    here = os.path.dirname(os.path.abspath(__file__))
+    for preset, label in (("pubmed_maxpool.json", "Pubmed-shaped"), ("ppi_lstm.json",
+                                                                     "PPI-shaped")):
+        cfg = TrainConfig.from_json(os.path.join(here, "configs", preset))
+        runs.append(run(f"{preset} on {label}", stand_ins[label], cfg, PRESET_STEPS))
+    for prep in ("linear", "node_embedding"):
+        runs.append(run(f"mean/{prep}", problem, aggregator_config("mean", prep), PREP_STEPS,
+                        warmup=2))
+
+    passes = {}
+    for agg in NEW_AGGREGATORS:
+        for dtype_name, dtype in COMPUTE_DTYPES.items():
+            g = problem.device_graph(train=False, dtype=dtype, device="cuda")
+            cfg = aggregator_config(agg).replace(compute_dtype=dtype_name)
+            model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+            model.reset_parameters(torch.Generator().manual_seed(6))
+            feat_row = g.feats.shape[1] * g.feats.element_size()
+            row_bytes = {"gcn": (feat_row, DIMS[0] * 4),
+                         "attention": (feat_row, 2 * DIMS[0] * 4)}.get(
+                             agg, (AGG_HIDDEN * 4, AGG_HIDDEN * 4))
+            passes[f"{agg}_{dtype_name}"] = time_exact_pass(torch, model.to("cuda"), g,
+                                                            row_bytes, peaks[0])
+    log(smi)
+    log(json.dumps({"aggregators": {"runs": runs, "exact_pass": passes,
+                                    "nodes": problem.n_nodes, "chunk": EXACT_CHUNK}}))
+    return results, total
 
 
 def main() -> int:
@@ -784,7 +1168,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("phase 1: device")
+    walls, started = {}, [time.perf_counter(), None]
+
+    def phase(label):
+        """Log the phase's start and the last one's wall time."""
+        now = time.perf_counter()
+        if started[1] is not None:
+            walls[started[1]] = now - started[0]
+            log(f"  ({started[1]}: {walls[started[1]]:.1f} s wall)")
+        started[:] = [now, label]
+        if label:
+            log(label)
+
+    phase("phase 1: device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -794,7 +1190,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; peaks used: "
         f"{peaks[0] / 1e12} TB/s, {peaks[1] / 1e12} TFLOP/s bf16, {peaks[2] / 1e12} f32")
 
-    log("phase 2: build")
+    phase("phase 2: build")
     t0 = time.perf_counter()
     _build.build()
     log(f"  built {len(_build.SOURCES)} kernels with nvcc in {time.perf_counter() - t0:.2f} s "
@@ -812,18 +1208,24 @@ def main() -> int:
     levels = sample_tree(graph.adj, graph.degrees, roots, FANOUTS, generator=gen)
     torch.cuda.synchronize()
 
-    log("phase 3: kernels against their plain versions at their paths' shapes")
+    phase("phase 3: kernels against their plain versions at their paths' shapes")
     results = phase_kernels(torch, np, graph, levels, peaks)
     check_packed_sampler(torch, graph, roots)
 
-    log("phase 4: card against CPU")
+    phase("phase 4: card against CPU")
     phase_reference(torch, np, store, levels)
 
-    log("phase 5: main path")
+    phase("phase 5: main path")
     by_path = {"train_steps": phase_main_path(torch, np, problem)}
 
-    log("phase 6: serving path")
+    phase("phase 6: serving path")
     by_path.update(phase_serving(torch, np, smi, peaks))
+
+    phase("phase 7: aggregators")
+    agg_results, by_path["aggregators"] = phase_aggregators(torch, np, problem, graph, levels,
+                                                            smi, peaks)
+    results += agg_results
+    phase(None)
 
     kernels_line = []
     for name_k, (source, replaces) in SOURCES.items():
@@ -846,6 +1248,7 @@ def main() -> int:
             "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")} for r in rows],
         })
+    log(json.dumps({"phase_wall_s": walls}))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels_line,
                     "timing": "median of 20 CUDA-event timings per case, each L2-cold "

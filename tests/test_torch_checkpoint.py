@@ -312,3 +312,69 @@ def test_checkpoint_keys_match_the_jax_layout(tmp_path, kw):
                if not k.startswith("__torch_generator_")}
         assert got == want
         assert "__torch_generator_cpu__" in tz.files
+
+
+# -- the other aggregators' and preps' trees ----------------------------------
+
+TREES = [dict(aggregator_class="max_pool", agg_hidden_dim=20),
+         dict(aggregator_class="lstm", prep_class="linear", agg_hidden_dim=12, embedding_dim=8)]
+TREE_IDS = ["max_pool", "lstm_linear"]
+
+
+@pytest.mark.parametrize("kw", TREES, ids=TREE_IDS)
+def test_new_tree_port_checkpoint_loads_into_jax(tmp_path, kw):
+    """The port's file of a max_pool tree and of an lstm + linear tree (the
+    pool's ``mlp``, the LSTM's ``lstm/xz`` and ``lstm/cell/hz``, the prep's
+    ``prep/fc``) loads into the JAX package, Adam moments included: after it,
+    one more step on each side gives the same parameters."""
+    test_port_checkpoint_loads_into_jax(tmp_path, kw)
+    with np.load(str(tmp_path / "port.npz")) as z:
+        names = set(z.files)
+    want = {"max_pool": ["params/params/agg_layers_0/mlp/bias",
+                         "opt_state/0/mu/params/agg_layers_1/mlp/kernel"],
+            "lstm": ["params/params/agg_layers_0/lstm/cell/hz/kernel",
+                     "opt_state/0/nu/params/agg_layers_1/lstm/xz/kernel",
+                     "opt_state/0/mu/params/prep/fc/kernel"]}[kw["aggregator_class"]]
+    assert set(want) <= names
+
+
+@pytest.mark.parametrize("kw", TREES, ids=TREE_IDS)
+def test_new_tree_jax_checkpoint_loads_into_the_port(tmp_path, kw):
+    """The reverse: the JAX package's file loads into the port, whose Adam
+    state then holds the file's moments bitwise."""
+    test_jax_checkpoint_loads_into_the_port(tmp_path, kw)
+    tr, graph, template = _torch_side(kw)
+    state = tck.load_checkpoint(str(tmp_path / "jax.npz"), template)
+    with np.load(str(tmp_path / "jax.npz")) as z:
+        for key, value in _moments(state).items():
+            param, slot = key.rsplit("/", 1)
+            stored = z[f"opt_state/0/{'mu' if slot == 'exp_avg' else 'nu'}/{param}"]
+            np.testing.assert_array_equal(value, stored, err_msg=key)
+
+
+@pytest.mark.parametrize("kw", TREES + [dict(prep_class="node_embedding", embedding_dim=8)],
+                         ids=TREE_IDS + ["node_embedding"])
+def test_new_tree_checkpoint_keys_match_the_jax_layout(tmp_path, kw):
+    test_checkpoint_keys_match_the_jax_layout(tmp_path, kw)
+
+
+def test_node_embedding_export_refuses_another_graph(tmp_path, capsys):
+    """The node-embedding table is keyed by training-graph node id: exporting
+    a graph of another size exits with the JAX package's message (the npy
+    header is read, not the table), and the same graph exports."""
+    from tpu_sage_torch.cli import main as port_cli
+    from tpu_sage_torch.export import main as port_export
+
+    ck = str(tmp_path / "emb.npz")
+    model = ["--n-train-samples", "4,3", "--n-val-samples", "4,3", "--output-dims", "8,8",
+             "--prep-class", "node_embedding", "--device", "cpu"]
+    assert port_cli(["--synthetic", "sbm", "--synthetic-nodes", "200", "--batch-size", "32",
+                     "--epochs", "1", "--checkpoint-path", ck] + model) == 0
+    out = str(tmp_path / "e.npy")
+    with pytest.raises(SystemExit, match="TRANSDUCTIVE.*covers 200 training-graph nodes but "
+                                         "the target graph has 300"):
+        port_export(["--synthetic", "sbm", "--synthetic-nodes", "300", "--checkpoint", ck,
+                     "--out", out] + model)
+    assert port_export(["--synthetic", "sbm", "--synthetic-nodes", "200", "--checkpoint", ck,
+                        "--out", out] + model) == 0
+    assert np.load(out).shape == (200, 16)

@@ -29,8 +29,48 @@ def test_unknown_aggregator_exits_2(capsys):
 
 
 def test_unported_aggregator_exits_2(capsys):
-    assert main(["--synthetic", "sbm", "--aggregator-class", "gcn", "--device", "cpu"]) == 2
-    assert "ROADMAP Queue 1 item 8" in capsys.readouterr().err
+    """gcn exited 2 until ROADMAP Queue 1 item 8 ported it; now it trains."""
+    assert main(TINY + ["--aggregator-class", "gcn", "--epochs", "1"]) == 0
+    recs = _capture(capsys)
+    assert recs[0]["config"]["aggregator_class"] == "gcn"
+    assert any("train_loss" in r for r in recs)
+
+
+def test_unknown_prep_exits_2(capsys):
+    assert main(["--synthetic", "sbm", "--prep-class", "bogus", "--device", "cpu"]) == 2
+    assert "unknown" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", [
+    ["--aggregator-class", "max_pool"], ["--aggregator-class", "mean_pool"],
+    ["--aggregator-class", "attention"], ["--aggregator-class", "lstm"],
+    ["--prep-class", "linear"], ["--prep-class", "node_embedding"],
+], ids=lambda f: f[1])
+def test_every_aggregator_and_prep_trains(capsys, flags):
+    assert main(TINY + flags + ["--epochs", "1", "--exact-val"]) == 0
+    recs = _capture(capsys)
+    assert recs[0]["config"][flags[0][2:].replace("-", "_")] == flags[1]
+    losses = [r["train_loss"] for r in recs if "train_loss" in r]
+    assert losses and all(l == l for l in losses)
+    assert any("final_test_metric" in r for r in recs)
+
+
+@pytest.mark.parametrize("preset,extra", [
+    ("pubmed_maxpool.json", []),
+    ("ppi_lstm.json", ["--synthetic-task", "multilabel_classification"]),
+], ids=["pubmed_maxpool", "ppi_lstm"])
+def test_presets_of_the_other_aggregators_train(capsys, preset, extra):
+    """The two presets the port could not run before, unchanged but for the
+    run's size (fanouts, widths, batch), on small synthetic stores."""
+    argv = ["--config", os.path.join(REPO, "configs", preset), "--synthetic", "sbm",
+            "--synthetic-nodes", "200", "--n-train-samples", "4,3", "--n-val-samples", "4,3",
+            "--output-dims", "8,8", "--batch-size", "32", "--epochs", "1",
+            "--device", "cpu"] + extra
+    assert main(argv) == 0
+    recs = _capture(capsys)
+    cfg = recs[0]["config"]
+    assert cfg["aggregator_class"] in ("max_pool", "lstm") and cfg["agg_hidden_dim"] in (512, 256)
+    assert any("final_test_metric" in r for r in recs)
 
 
 def test_mismatched_dims_exits_2():

@@ -41,9 +41,10 @@ def _stores():
     return stores
 
 
-def _models(combine="concat", normalize=True, compute_dtype="float32"):
+def _models(combine="concat", normalize=True, compute_dtype="float32", **extra):
     kw = dict(n_train_samples=(4, 3), n_val_samples=(4, 3), output_dims=(16, 12),
-              combine=combine, normalize=normalize, compute_dtype=compute_dtype)
+              combine=combine, normalize=normalize, compute_dtype=compute_dtype,
+              agg_hidden_dim=20, embedding_dim=8, **extra)
     jst, tst = _stores()
     jmodel = j_build_model(JTrainConfig(**kw), N, jst.n_classes)
     levels = [jnp.zeros((4,), jnp.int32), jnp.zeros((16,), jnp.int32),
@@ -122,14 +123,64 @@ def test_chunk_size_does_not_change_the_result():
 
 
 def test_exact_support_and_refusals():
+    """Every permutation-invariant aggregator runs (gcn was refused until
+    ROADMAP Queue 1 item 8 ported it); lstm is order-defined and raises as
+    the JAX package does; a node-embedding table of another graph's size is
+    refused."""
     _, tst, _, _, tmodel = _models()
     _, tgraph = _graphs(*_stores(), False)
     assert tfg.exact_supported(tmodel)
     assert tfg.EXACT_AGGREGATORS == jfg.EXACT_AGGREGATORS
-    tmodel.aggregator_class = "gcn"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tfg.embed_all_nodes(tmodel, tgraph)
-    tmodel.aggregator_class = "lstm"
-    assert not tfg.exact_supported(tmodel)
+    gcn = _models(aggregator_class="gcn")[-1]
+    assert tfg.exact_supported(gcn)
+    assert tuple(tfg.embed_all_nodes(gcn, tgraph).shape) == (N, 12)
+    lstm = _models(aggregator_class="lstm")[-1]
+    assert not tfg.exact_supported(lstm)
     with pytest.raises(ValueError, match="sample-defined"):
-        tfg.embed_all_nodes(tmodel, tgraph)
+        tfg.embed_all_nodes(lstm, tgraph)
+    emb = build_model(TrainConfig(n_train_samples=(4, 3), n_val_samples=(4, 3),
+                                  output_dims=(16, 12), prep_class="node_embedding"),
+                      N + 1, tst.n_classes, tst.feat_dim)
+    with pytest.raises(ValueError, match="transductive"):
+        tfg.embed_all_nodes(emb, tgraph)
+
+
+# the other exact aggregators and the preps, against the JAX package, with
+# the tolerances of the module docstring: after layer 0's summary everything
+# is f32 on both sides; gcn's bf16 summary is held bitwise below. Pools and
+# attention mask the columns past each degree; degree-0 nodes self-loop.
+EXACT_CASES = [(a, "identity") for a in ("gcn", "max_pool", "mean_pool", "attention")] + [
+    ("mean", "linear"), ("max_pool", "node_embedding")]
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("agg,prep", EXACT_CASES, ids=[f"{a}-{p}" for a, p in EXACT_CASES])
+def test_embed_all_nodes_every_aggregator_and_prep(agg, prep, bf16):
+    jst, tst, jmodel, params, tmodel = _models(
+        compute_dtype="bfloat16" if bf16 else "float32", aggregator_class=agg, prep_class=prep)
+    jgraph, tgraph = _graphs(jst, tst, bf16)
+    for with_head in (False, True):
+        ref = np.asarray(jfg.embed_all_nodes(jmodel, params, jgraph, chunk=CHUNK,
+                                             with_head=with_head).astype(jnp.float32))
+        out = tfg.embed_all_nodes(tmodel, tgraph, chunk=CHUNK, with_head=with_head)
+        assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+        tol = (BF16_ULP if bf16 else 1e-5) * np.abs(ref).max()
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=tol)
+
+
+def test_gcn_layer0_summary_matches_jax_bitwise(monkeypatch):
+    """gcn's bf16 summary ``(mean · deg + self) / (deg + 1)`` stays in the
+    table's dtype, as JAX's does; degree-0 nodes keep their own row."""
+    jst, tst, jmodel, params, tmodel = _models(compute_dtype="bfloat16", aggregator_class="gcn")
+    jgraph, tgraph = _graphs(jst, tst, True)
+    monkeypatch.setattr(jfg, "_combine_with_params",
+                        lambda model, li, sub, h_self, summary, agg: summary)
+    monkeypatch.setattr(tfg, "_combine_with_params", lambda agg, h_self, summary: summary)
+    ref = jfg._layer_full(jmodel, params, 0, jgraph.feats, jgraph, CHUNK)
+    with torch.inference_mode():
+        out = tfg._layer_full(tmodel, 0, tgraph.feats, tgraph, CHUNK)
+    assert ref.dtype == jnp.bfloat16 and out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.view(torch.int16).numpy(), np.asarray(ref).view(np.int16))
+    for v in ISOLATED:
+        np.testing.assert_array_equal(out[v].float().numpy(),
+                                      torch.from_numpy(tst.feats[v]).bfloat16().float().numpy())

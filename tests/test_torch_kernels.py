@@ -210,6 +210,57 @@ def test_mean_project_bf16_rounds_the_mean_as_jax_does(shape):
         assert _bf16_ulps(_bf16_bits_torch(ours), _bf16_bits_jax(ref)).max() <= 1
 
 
+@pytest.mark.parametrize("shape", [(24, 5, 16, 8), (9, 25, 66, 24), (7, 10, 33, 16)])
+def test_mean_project_f32_rows_under_bf16_weights_match_flax_dense(shape):
+    """f32 rows (a linear or node-embedding prep's output) with a bf16 W, as
+    the JAX package's mean aggregator computes them: ``fc_neigh(jnp.mean(x))``
+    under ``Dense(dtype=bf16)``, which rounds the f32 mean to bf16 before the
+    product. Out bf16 within 1 bf16 ulp of that (and not the product of the
+    unrounded mean); dx (f32) and dW (bf16) within 1.5e-2 of their scale, the
+    bf16 gradient tolerance of tests/test_torch_model.py."""
+    b, f, d, o = shape
+    rng = np.random.default_rng(d)
+    x = rng.normal(size=(b, f, d)).astype(np.float32)
+    w = (rng.normal(size=(d, o)) / np.sqrt(d)).astype(np.float32)
+    g = rng.normal(size=(b, o)).astype(np.float32)
+    jw = jnp.asarray(w, jnp.bfloat16)
+
+    def flax_form(x, w):
+        return jnp.dot(jnp.mean(x, 1).astype(jnp.bfloat16), w,
+                       preferred_element_type=jnp.float32).astype(jnp.bfloat16)
+
+    want, vjp = jax.vjp(flax_form, jnp.asarray(x), jw)
+    jdx, jdw = vjp(jnp.asarray(g, jnp.bfloat16))
+    xt = torch.from_numpy(x).requires_grad_()
+    wt = torch.from_numpy(w).to(torch.bfloat16).requires_grad_()
+    out = mean_project(xt, wt)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (b, o)
+    assert _bf16_ulps(_bf16_bits_torch(out.detach()), _bf16_bits_jax(want)).max() <= 1
+    unrounded = (xt.detach().double().mean(1) @ wt.detach().double()).to(torch.bfloat16)
+    assert not torch.equal(unrounded, out.detach())
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    assert xt.grad.dtype == torch.float32 and wt.grad.dtype == torch.bfloat16
+    for got, ref in ((xt.grad, jdx), (wt.grad, jdw)):
+        ref = np.asarray(ref, np.float32)
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=0,
+                                   atol=1.5e-2 * np.abs(ref).max())
+
+
+def test_mean_project_bf16_plan_for_f32_rows():
+    """The bf16 kernel's launch shape for f32 rows: a stage holds at most
+    16 KB of rows whose bytes 16 divides (6 rows of the node-embedding
+    prep's 666 f32 columns, 32 of the linear prep's 64), a block's tile is a
+    16-byte multiple, so x streams by bulk copies from an aligned base."""
+    emb = mp.bf16_plan(25, 666, 128, 1 << 20, x_bytes=4)
+    assert emb["word"] == 16 and emb["g_rows"] == 6 and emb["smem"] <= 232_448
+    lin = mp.bf16_plan(25, 64, 128, 1 << 20, x_bytes=4)
+    assert lin["word"] == 16 and lin["g_rows"] == 32
+    for d, o in ((666, 128), (64, 128), (33, 16), (2048, 512)):
+        plan = mp.bf16_plan(10, d, o, (1 << 20) + 4, x_bytes=4)
+        assert plan["word"] == 4 and (plan["g_rows"] * d * 4) % 16 == 0
+        assert plan["smem"] <= 232_448
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("needs", [(True, True), (False, True), (True, False)])
 def test_mean_project_backward_computes_only_the_grads_asked_for(dtype, needs):

@@ -6,9 +6,10 @@ mirrors the reference module for module (``graph/``, ``data/``, ``sample/``,
 ``nn/``, ``train/``, ``kernels/``, ``ops.py``) so each counterpart is easy to
 find.
 
-Ported so far: supervised training with the ``mean`` aggregator, ``identity``
-prep and dense padded adjacency — the path ``fit()`` runs — and the serving
-path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
+Ported so far: supervised training with dense padded adjacency and every
+aggregator (``mean``, ``gcn``, ``max_pool``, ``mean_pool``, ``attention``,
+``lstm``) and prep (``identity``, ``linear``, ``node_embedding``) — the paths
+``fit()`` runs — and the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
 exact full-graph inference (``nn/full_graph``), the exporter (``export``)
 and the CLI (``cli``). The hot functions (sampler hop, column select, row
 gather, gather + fanout mean, mean + projection) are hand-written CUDA

@@ -24,9 +24,6 @@ import argparse
 import json
 import sys
 
-AGGREGATORS = ("mean", "max_pool", "mean_pool", "lstm", "attention", "gcn")
-PREPS = ("identity", "linear", "node_embedding")
-
 
 def parse_args(argv=None):
     # allow_abbrev=False: --config override detection scans the raw argv for
@@ -191,15 +188,11 @@ def main(argv=None):
     from tpu_sage_torch.train.lr import LRSchedule
     from tpu_sage_torch.train.trainer import TrainConfig
 
-    for name, known, ported in (("--aggregator-class", AGGREGATORS, aggregator_lookup),
-                                ("--prep-class", PREPS, prep_lookup)):
+    for name, known in (("--aggregator-class", aggregator_lookup),
+                        ("--prep-class", prep_lookup)):
         val = getattr(args, name.strip("-").replace("-", "_"))
         if val not in known:
             print(f"error: {name} {val!r} unknown; choose from {sorted(known)}",
-                  file=sys.stderr)
-            return 2
-        if val not in ported:
-            print(f"error: {name} {val!r} is not ported yet (ROADMAP Queue 1 item 8)",
                   file=sys.stderr)
             return 2
     if args.lr_schedule not in LRSchedule.lookup:

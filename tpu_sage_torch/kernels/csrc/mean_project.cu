@@ -1,8 +1,10 @@
 // Fanout mean + projection, forward:
-//   out = to(x.dtype)( to(x.dtype)(mean_f32(x, axis=1)) @ W ),
+//   out = to(W.dtype)( to(W.dtype)(mean_f32(x, axis=1)) @ W ),
 // the mean summed in f32 in the order j = 0, 1, ..., divided by F and
-// rounded once to x's dtype (as jnp.mean of a bf16 tile returns it), the
-// product accumulated in f32 and rounded once.
+// rounded once to W's dtype (as jnp.mean of a bf16 tile returns it, or as
+// flax's Dense(dtype=bf16) casts the f32 mean of a prep's f32 rows), the
+// product accumulated in f32 and rounded once. x is W's dtype, or f32 under
+// a bf16 W.
 //
 // Replaces the forward of tpu_sage/kernels/mean_project.py::mean_project
 // (_pallas_forward), the mean aggregator's neighbor branch: x (B, F, D),
@@ -14,8 +16,10 @@
 // and the (B, O) output are small, and the 2*B*D*O operations are far below
 // the tensor cores' rate.
 //
-// bf16 design. A block owns kTB = 4 roots (128 blocks at B = 512, one per
-// SM, 16 warps) and its x tile, the contiguous TB*F*D*2 bytes of its roots:
+// bf16 design (bf16 W; x bf16, or f32 rows of a prep's output, which only
+// widen the stream's rows and the words the reduction loads). A block owns
+// kTB = 4 roots (128 blocks at B = 512, one per SM, 16 warps) and its x
+// tile, the contiguous TB*F*D*sizeof(x) bytes of its roots:
 //   1. x streams through a ring of kStages = 4 shared-memory slots of G rows
 //      of D (about 16 KB: G = 12 at D = 602), three slots in flight. When
 //      x's base address and a block's tile length are 16-byte multiples, one
@@ -32,11 +36,11 @@
 //      permuted by row (word ^ (row & 7)), so the ldmatrix reads below hit
 //      distinct banks. When W does not fit beside the x ring, its chunk
 //      buffers form a ring refilled during the product.
-//   3. Each thread owns bf16x2 words tid + 512*u of a row (single columns
-//      when D is odd) and reduces the fanout axis in f32 registers as the
-//      rows arrive, in the order j = 0, 1, ...; after j = F - 1 it divides
-//      by F, rounds to bf16 and stores the (TB, D) mean tile, zero-padded to
-//      a multiple of 16 in K, in shared memory.
+//   3. Each thread owns column pairs tid + 512*u of a row (bf16x2 or float2
+//      words; single columns when D is odd) and reduces the fanout axis in
+//      f32 registers as the rows arrive, in the order j = 0, 1, ...; after
+//      j = F - 1 it divides by F, rounds to bf16 and stores the (TB, D) mean
+//      tile, zero-padded to a multiple of 16 in K, in shared memory.
 //   4. The product runs on the tensor cores as out^T = W^T mean^T with
 //      mma.sync.m16n8k16 (bf16 in, f32 accumulate): A fragments come from W
 //      with ldmatrix.x4.trans, B fragments (N = 8, roots 4..7 zero) from the
@@ -178,14 +182,22 @@ __device__ __forceinline__ void issue_w_chunk(const __nv_bfloat16* w, unsigned c
                  src + (int64_t)r * row_bytes);
 }
 
-// Load row i's words of this thread (u < NU: word tid + 512*u) as f32.
-template <int NU, bool PAIRS>
+// Load row i's words of this thread (u < NU: word tid + 512*u) as f32; XT is
+// x's element type, a word one element or (PAIRS) two.
+template <int NU, bool PAIRS, typename XT>
 __device__ __forceinline__ void load_row(const unsigned char* slot, int i, int words, int tid,
                                          float* v) {
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     const int p = tid + u * kThreads;
-    if constexpr (PAIRS) {
+    if constexpr (sizeof(XT) == 4 && PAIRS) {
+      const float2 x2 = p < words ? reinterpret_cast<const float2*>(slot)[i * words + p]
+                                  : make_float2(0.f, 0.f);
+      v[2 * u] = x2.x;
+      v[2 * u + 1] = x2.y;
+    } else if constexpr (sizeof(XT) == 4) {
+      v[u] = p < words ? reinterpret_cast<const float*>(slot)[i * words + p] : 0.f;
+    } else if constexpr (PAIRS) {
       const uint32_t x2 = p < words ? reinterpret_cast<const uint32_t*>(slot)[i * words + p] : 0u;
       v[2 * u] = __uint_as_float(x2 << 16);
       v[2 * u + 1] = __uint_as_float(x2 & 0xffff0000u);
@@ -200,10 +212,10 @@ __device__ __forceinline__ void load_row(const unsigned char* slot, int i, int w
 // tile; row q is root q / f, fanout index q % f) into the f32 accumulators
 // of this thread's columns, in the order j = 0, 1, ...; after j = f - 1
 // store the root's mean, divided by f and rounded to bf16, into the mean
-// tile. PAIRS (even d): a thread owns bf16x2 words tid + 512*u of each row;
+// tile. PAIRS (even d): a thread owns column pairs tid + 512*u of each row;
 // otherwise single columns. The rows of one root inside the slot are a run
 // with no control flow: four rows' loads are issued before their adds.
-template <int NU, bool PAIRS>
+template <int NU, bool PAIRS, typename XT>
 __device__ __forceinline__ void reduce_slot(const unsigned char* slot, int cnt, int q0, int f,
                                             int d, int k16, __nv_bfloat16* mean, float* acc,
                                             int tid) {
@@ -223,17 +235,17 @@ __device__ __forceinline__ void reduce_slot(const unsigned char* slot, int cnt, 
 #pragma unroll 1
     for (; k + 4 <= run; k += 4) {
       float v0[kE], v1[kE], v2[kE], v3[kE];
-      load_row<NU, PAIRS>(slot, i + k, words, tid, v0);
-      load_row<NU, PAIRS>(slot, i + k + 1, words, tid, v1);
-      load_row<NU, PAIRS>(slot, i + k + 2, words, tid, v2);
-      load_row<NU, PAIRS>(slot, i + k + 3, words, tid, v3);
+      load_row<NU, PAIRS, XT>(slot, i + k, words, tid, v0);
+      load_row<NU, PAIRS, XT>(slot, i + k + 1, words, tid, v1);
+      load_row<NU, PAIRS, XT>(slot, i + k + 2, words, tid, v2);
+      load_row<NU, PAIRS, XT>(slot, i + k + 3, words, tid, v3);
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] = (((acc[e] + v0[e]) + v1[e]) + v2[e]) + v3[e];
     }
 #pragma unroll 1
     for (; k < run; ++k) {
       float v0[kE];
-      load_row<NU, PAIRS>(slot, i + k, words, tid, v0);
+      load_row<NU, PAIRS, XT>(slot, i + k, words, tid, v0);
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] += v0[e];
     }
@@ -260,12 +272,12 @@ __device__ __forceinline__ void reduce_slot(const unsigned char* slot, int cnt, 
 }
 
 // MT: m-tiles of 16 output columns per warp (o_pad = 128 * MT, or less when
-// MT = 1). NU: reduction words per thread (words <= 512 * NU). x streams
-// with one bulk copy per stage when `word` is 16, else with cp.async words
-// of `word` bytes.
-template <int MT, int NU, bool PAIRS>
+// MT = 1). NU: reduction words per thread (words <= 512 * NU). XT: x's
+// element type (bf16 or f32). x streams with one bulk copy per stage when
+// `word` is 16, else with cp.async words of `word` bytes.
+template <int MT, int NU, bool PAIRS, typename XT>
 __global__ void __launch_bounds__(kThreads, 1)
-mean_project_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                          __nv_bfloat16* __restrict__ out, int64_t b, int f, int d, int o_pad,
                          int word, int g_rows, int n_wbufs) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -276,7 +288,8 @@ mean_project_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
   const int n_res = min(nc, n_wbufs);  // W chunks that have a buffer from the start
   const int row_bytes = o_pad * 2;
   const int swz = min(7, o_pad / 8 - 1);
-  const int slot_bytes = (g_rows * d * 2 + 15) & ~15;
+  constexpr int kXB = sizeof(XT);
+  const int slot_bytes = (g_rows * d * kXB + 15) & ~15;
   const uint32_t full0 = smem_u32(smem);  // bulk: slot i's copy completes on full0 + 8*i
   __nv_bfloat16* mean = reinterpret_cast<__nv_bfloat16*>(smem + kBarBytes);  // (kTB, k16)
   float* xbuf = reinterpret_cast<float*>(smem + kBarBytes + kTB * k16 * 2);  // (o_pad/16, 32, 4)
@@ -309,8 +322,8 @@ mean_project_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
   const unsigned char* tile = reinterpret_cast<const unsigned char*>(x + b0 * f * d);
   auto issue_stage = [&](int s) {
     unsigned char* slot = ring + (size_t)(s % kStages) * slot_bytes;
-    const int bytes = min(g_rows, n_xrows - s * g_rows) * d * 2;
-    const unsigned char* src = tile + (int64_t)s * g_rows * d * 2;
+    const int bytes = min(g_rows, n_xrows - s * g_rows) * d * kXB;
+    const unsigned char* src = tile + (int64_t)s * g_rows * d * kXB;
     if (bulk) {
       if (tid == 0) {
         const uint32_t bar = full0 + 8 * (s % kStages);
@@ -347,9 +360,9 @@ mean_project_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
     if (s < n_res && w_issuer) issue_w_chunk(w, wbufs, s, s, d, o_pad, tid - w_first, w_count);
     cp_async_commit();
     if (warp < red_warps)
-      reduce_slot<NU, PAIRS>(ring + (size_t)(s % kStages) * slot_bytes,
-                             min(g_rows, n_xrows - s * g_rows), s * g_rows, f, d, k16, mean, acc,
-                             tid);
+      reduce_slot<NU, PAIRS, XT>(ring + (size_t)(s % kStages) * slot_bytes,
+                                 min(g_rows, n_xrows - s * g_rows), s * g_rows, f, d, k16, mean,
+                                 acc, tid);
   }
 #pragma unroll 1
   for (int c = n_stages; c < n_res; ++c) issue_w_chunk(w, wbufs, c, c, d, o_pad, tid, kThreads);
@@ -531,25 +544,25 @@ int set_smem(K kernel, size_t smem, size_t* done) {
   return 0;
 }
 
-template <int MT, int NU, bool PAIRS>
+template <int MT, int NU, bool PAIRS, typename XT>
 int launch_bf16(const void* x, const void* w, void* out, int64_t b, int f, int d, int o_pad,
                 int word, int g_rows, int n_wbufs, size_t smem, cudaStream_t s) {
   static size_t done = 0;
-  if (int e = set_smem(mean_project_bf16_kernel<MT, NU, PAIRS>, smem, &done)) return e;
+  if (int e = set_smem(mean_project_bf16_kernel<MT, NU, PAIRS, XT>, smem, &done)) return e;
   const unsigned blocks = (unsigned)((b + kTB - 1) / kTB);
-  mean_project_bf16_kernel<MT, NU, PAIRS><<<blocks, kThreads, smem, s>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)out, b, f, d, o_pad, word,
+  mean_project_bf16_kernel<MT, NU, PAIRS, XT><<<blocks, kThreads, smem, s>>>(
+      (const XT*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)out, b, f, d, o_pad, word,
       g_rows, n_wbufs);
   return (int)cudaGetLastError();
 }
 
-template <int MT>
+template <int MT, typename XT>
 int launch_bf16_mt(const void* x, const void* w, void* out, int64_t b, int f, int d, int o_pad,
                    int word, int g_rows, int n_wbufs, size_t smem, cudaStream_t s) {
   const bool pairs = d % 2 == 0;
   const int words = pairs ? d / 2 : d;
 #define TSG_LAUNCH(NU, PAIRS) \
-  launch_bf16<MT, NU, PAIRS>(x, w, out, b, f, d, o_pad, word, g_rows, n_wbufs, smem, s)
+  launch_bf16<MT, NU, PAIRS, XT>(x, w, out, b, f, d, o_pad, word, g_rows, n_wbufs, smem, s)
   if (pairs) return words <= kThreads ? TSG_LAUNCH(1, true) : TSG_LAUNCH(2, true);
   if (words <= kThreads) return TSG_LAUNCH(1, false);
   if (words <= 2 * kThreads) return TSG_LAUNCH(2, false);
@@ -559,26 +572,31 @@ int launch_bf16_mt(const void* x, const void* w, void* out, int64_t b, int f, in
 
 }  // namespace
 
-// bf16: x (b, f, d), w (d, o_pad) with o_pad a power of two in [16, 1024]
-// and a 16-byte-aligned base, out (b, o_pad). word_bytes (16, 8 or 4)
-// divides x's base address and kTB*f*d*2; 16 divides g_rows*d*2. The caller
-// sizes smem_bytes as 128 + 4*k16*2 + 32*o_pad + 4*ceil16(g_rows*d*2) plus
+// bf16: x (b, f, d) of x_bytes-byte elements (2: bf16, 4: f32), w (d, o_pad)
+// bf16 with o_pad a power of two in [16, 1024] and a 16-byte-aligned base,
+// out (b, o_pad) bf16. word_bytes (16, 8 or 4) divides x's base address and
+// kTB*f*d*x_bytes; 16 divides g_rows*d*x_bytes. The caller sizes smem_bytes
+// as 128 + 4*k16*2 + 32*o_pad + 4*ceil16(g_rows*d*x_bytes) plus
 // W's rows, d*o_pad*2 when all are resident (n_wbufs = ceil(d/64)), else
 // n_wbufs*64*o_pad*2, within 232,448 (k16 = d rounded up to 16), with
 // d <= 2048.
 extern "C" int tsg_mean_project_bf16(const void* x, const void* w, void* out, long long b,
-                                     int f, int d, int o_pad, int word_bytes, int g_rows,
-                                     int n_wbufs, long long smem_bytes, void* stream) {
+                                     int f, int d, int o_pad, int x_bytes, int word_bytes,
+                                     int g_rows, int n_wbufs, long long smem_bytes, void* stream) {
   if (word_bytes != 16 && word_bytes != 8 && word_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (x_bytes != 2 && x_bytes != 4) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)smem_bytes;
+#define TSG_LAUNCH_X(MT, XT) \
+  launch_bf16_mt<MT, XT>(x, w, out, b, f, d, o_pad, word_bytes, g_rows, n_wbufs, smem, s)
 #define TSG_LAUNCH(MT) \
-  launch_bf16_mt<MT>(x, w, out, b, f, d, o_pad, word_bytes, g_rows, n_wbufs, smem, s)
+  (x_bytes == 4 ? TSG_LAUNCH_X(MT, float) : TSG_LAUNCH_X(MT, __nv_bfloat16))
   if (o_pad <= 128) return TSG_LAUNCH(1);
   if (o_pad <= 256) return TSG_LAUNCH(2);
   if (o_pad <= 512) return TSG_LAUNCH(4);
   return TSG_LAUNCH(8);
 #undef TSG_LAUNCH
+#undef TSG_LAUNCH_X
 }
 
 // f32: shared memory per block 4 * (kTB * d + kF32Warps * kTB * o) bytes; the

@@ -1,23 +1,25 @@
 """Fanout mean + projection: ``out = mean(x, axis=1) @ W``.
 
 Counterpart of ``tpu_sage/kernels/mean_project.py::mean_project``: ``x (B, F,
-D)`` and ``W (D, O)`` of one dtype (bf16 or f32), output in ``x.dtype``. The
-contract is the reference's, rounding included::
+D)`` and ``W (D, O)``, W bf16 or f32, x of W's dtype or f32 (the f32 rows of
+a linear or node-embedding prep under a bf16 model); output in ``W.dtype``.
+The contract is the reference's, rounding included::
 
-    out = to(x.dtype)( to(x.dtype)(mean_f32(x, axis=1)) @ W )
+    out = to(W.dtype)( to(W.dtype)(mean_f32(x, axis=1)) @ W )
 
 the mean summed in f32 in the order j = 0, 1, ..., divided by F and rounded
-once to ``x.dtype`` (as ``jnp.mean`` of a bf16 tile returns it), the product
+once to ``W.dtype`` (as ``jnp.mean`` of a bf16 tile returns it; for f32 rows,
+as the JAX package's ``fc_neigh(jnp.mean(x))`` casts the mean), the product
 accumulated in f32 and rounded once. For f32 both roundings are no-ops.
 
-The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16: x
+The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16 W: x
 streamed into shared memory with bulk asynchronous copies, or ``cp.async``
 words when it is not 16-byte aligned, and the product on the tensor cores;
 f32: exact f32 on the SIMT units); on a CPU tensor it runs
 ``mean_project_reference``.
 The backward is the reference's (computed outside Pallas there too), two
-plain products with ``meanx`` recomputed, each only when its input needs a
-gradient::
+plain products with ``meanx`` recomputed in W's dtype, each only when its
+input needs a gradient, ``dx`` divided in x's dtype::
 
     dW = meanx^T @ g
     dx = broadcast(g @ W^T) / F
@@ -39,7 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _LL, _P),
+    "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
     "tsg_mean_project_f32": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 _MAX_SMEM_BYTES = 232_448  # per-block shared memory on Hopper
@@ -54,26 +56,28 @@ def _ceil(a: int, m: int) -> int:
     return -(-a // m) * m
 
 
-def bf16_plan(f: int, d: int, o: int, x_ptr: int) -> dict:
-    """Launch shape of the bf16 kernel for ``x (B, f, d)`` at address
-    ``x_ptr`` and ``W (d, o)``: the copy word for x (16 bytes, a bulk copy
-    per stage, when it divides the address and a block's tile of ``4·f·d·2``
-    bytes, else 8- or 4-byte cp.async words), the x rows per ring stage
-    (``16`` divides a stage's bytes, at most 16 KB), W's columns padded to a
-    power of two ``o_pad``, the number of W chunk buffers that fit beside the
-    ring, and the shared memory. Raises for what the kernel does not take."""
+def bf16_plan(f: int, d: int, o: int, x_ptr: int, x_bytes: int = 2) -> dict:
+    """Launch shape of the bf16 kernel for ``x (B, f, d)`` of ``x_bytes``-byte
+    elements (2: bf16, 4: f32) at address ``x_ptr`` and a bf16 ``W (d, o)``:
+    the copy word for x (16 bytes, a bulk copy per stage, when it divides the
+    address and a block's tile of ``4·f·d·x_bytes`` bytes, else 8- or 4-byte
+    cp.async words), the x rows per ring stage (``16`` divides a stage's
+    bytes, at most 16 KB), W's columns padded to a power of two ``o_pad``,
+    the number of W chunk buffers that fit beside the ring, and the shared
+    memory. Raises for what the kernel does not take."""
     if d > _MAX_D or o > _MAX_O:
         raise ValueError(f"mean_project bf16 kernel takes D <= {_MAX_D} and O <= {_MAX_O}, "
                          f"got D={d}, O={o}")
-    tile = _TB * f * d * 2
+    row = d * x_bytes
+    tile = _TB * f * row
     word = next((w for w in (16, 8, 4) if x_ptr % w == 0 and tile % w == 0), None)
     if word is None:
         raise ValueError("mean_project bf16 kernel needs x 4-byte aligned")
-    step = 16 // math.gcd(2 * d, 16)  # fewest rows whose bytes 16 divides
-    g_rows = max(step, min(_MAX_STAGE_ROWS, _STAGE_TARGET_BYTES // (2 * d)) // step * step)
+    step = 16 // math.gcd(row, 16)  # fewest rows whose bytes 16 divides
+    g_rows = max(step, min(_MAX_STAGE_ROWS, _STAGE_TARGET_BYTES // row) // step * step)
     o_pad = max(16, 1 << (o - 1).bit_length())
     fixed = (_BAR_BYTES + _TB * _ceil(d, 16) * 2 + 32 * o_pad
-             + _STAGES * _ceil(g_rows * d * 2, 16))
+             + _STAGES * _ceil(g_rows * row, 16))
     n_chunks = -(-d // _KC)
     if fixed + d * 2 * o_pad <= _MAX_SMEM_BYTES:  # all of W resident
         n_wbufs, w_bytes = n_chunks, d * 2 * o_pad
@@ -92,18 +96,18 @@ def f32_smem_bytes(d: int, o: int) -> int:
 
 
 def mean_project_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the forward: f32 mean rounded to ``x.dtype``,
-    f32 product, rounded to ``x.dtype``."""
-    meanx = fanout_sum_mean(x).to(x.dtype)
-    return (meanx.float() @ w.float()).to(x.dtype)
+    """Plain PyTorch version of the forward: f32 mean rounded to ``w.dtype``,
+    f32 product, rounded to ``w.dtype``."""
+    meanx = fanout_sum_mean(x).to(w.dtype)
+    return (meanx.float() @ w.float()).to(w.dtype)
 
 
 def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"mean_project runs on cuda or cpu, got {x.device}")
-    require(x, "x", device=x.device, dtypes=(torch.bfloat16, torch.float32), ndim=3)
-    require(w, "w", device=x.device, dtypes=(x.dtype,), ndim=2)
+    require(w, "w", device=x.device, dtypes=(torch.bfloat16, torch.float32), ndim=2)
+    require(x, "x", device=x.device, dtypes=tuple({w.dtype, torch.float32}), ndim=3)
     b, f, d = x.shape
     if f == 0:
         raise ValueError("mean_project needs a fanout of at least 1")
@@ -111,7 +115,7 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"w has {w.shape[0]} rows, x has width {d}")
     o = w.shape[1]
     lib = library("mean_project", _SIGNATURES)
-    if x.dtype == torch.float32:
+    if w.dtype == torch.float32:
         if f32_smem_bytes(d, o) > _MAX_SMEM_BYTES:
             raise ValueError(f"mean_project f32 kernel: D={d}, O={o} need "
                              f"{f32_smem_bytes(d, o)} bytes of shared memory, more than "
@@ -124,15 +128,16 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         LAUNCHES += 1
         return out
     if b == 0 or o == 0:
-        return torch.empty((b, o), dtype=x.dtype, device=x.device)
-    plan = bf16_plan(f, d, o, x.data_ptr())
+        return torch.empty((b, o), dtype=w.dtype, device=x.device)
+    plan = bf16_plan(f, d, o, x.data_ptr(), x.element_size())
     o_pad = plan["o_pad"]
     if o_pad != o or w.data_ptr() % 16:
         # the kernel reads W rows of o_pad columns from a 16-byte-aligned base
         w = torch.nn.functional.pad(w, (0, o_pad - o))
-    out = torch.empty((b, o_pad), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, o_pad), dtype=w.dtype, device=x.device)
     launch(lib.tsg_mean_project_bf16, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o_pad,
-           plan["word"], plan["g_rows"], plan["n_wbufs"], plan["smem"], device=x.device)
+           x.element_size(), plan["word"], plan["g_rows"], plan["n_wbufs"], plan["smem"],
+           device=x.device)
     LAUNCHES += 1
     return out if o_pad == o else out[:, :o].contiguous()
 
@@ -150,12 +155,13 @@ class _MeanProject(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[1]:
-            dw = x.mean(dim=1).t() @ g
+            dw = x.mean(dim=1).to(w.dtype).t() @ g
         if ctx.needs_input_grad[0]:
-            dx = ((g @ w.t()) / x.shape[1]).unsqueeze(1).expand_as(x)
+            dx = ((g @ w.t()).to(x.dtype) / x.shape[1]).unsqueeze(1).expand_as(x)
         return dx, dw
 
 
 def mean_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x (B, F, D)``, ``w (D, O)`` of one dtype → ``(B, O)`` in ``x.dtype``."""
+    """``x (B, F, D)`` of ``w``'s dtype or f32, ``w (D, O)`` → ``(B, O)`` in
+    ``w.dtype``."""
     return _MeanProject.apply(x, w)

@@ -1,10 +1,17 @@
-"""``Dense``: a linear layer with ``flax.linen.Dense``'s layout and casts.
+"""``Dense`` and ``Embed``: flax's ``linen.Dense`` and ``linen.Embed`` layouts,
+casts and initialisers.
 
 The kernel is stored ``(in, out)`` in f32, as flax stores it, so parameter
 trees carry over key for key (``nn/params.py``). With ``dtype`` set, every
 call casts the input, the kernel and the bias to ``dtype`` and returns
 ``dtype`` — flax's ``Dense(dtype=bf16)`` with f32 params. With ``dtype=None``
 the input and params promote to a common type.
+
+Initialisers draw from an explicit CPU ``torch.Generator``, so a seed gives
+the same parameters on every device: ``lecun_normal_`` (flax's Dense
+default), ``orthogonal_`` (the LSTM's recurrent kernel) and the embedding
+table's normal of std ``1/sqrt(features)`` (flax's ``default_embed_init``).
+Biases start at zero.
 """
 
 from __future__ import annotations
@@ -25,6 +32,19 @@ def lecun_normal_(kernel: torch.Tensor, generator: torch.Generator) -> torch.Ten
     with torch.no_grad():
         return torch.nn.init.trunc_normal_(kernel, 0.0, std, -2.0 * std, 2.0 * std,
                                            generator=generator)
+
+
+def orthogonal_(kernel: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill a 2-D kernel in place with an orthogonal matrix, as
+    ``jax.nn.initializers.orthogonal()``: orthonormal rows when it is wide,
+    orthonormal columns when it is tall (the QR of a normal matrix, signs
+    fixed by ``R``'s diagonal)."""
+    rows, cols = kernel.shape
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    with torch.no_grad():
+        return kernel.copy_(q.T if rows < cols else q)
 
 
 class Dense(torch.nn.Module):
@@ -52,3 +72,24 @@ class Dense(torch.nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+class Embed(torch.nn.Module):
+    """An ``(num_embeddings, features)`` f32 table indexed by ids, flax's
+    ``linen.Embed`` with no compute dtype. The lookup is a plain index, whose
+    gradient is dense: every row's optimizer state moves on every step, as
+    optax's does."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = torch.nn.Parameter(torch.empty(num_embeddings, features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """A normal of std ``1/sqrt(features)`` (flax's ``default_embed_init``:
+        variance scaling 1.0, fan-in over the feature axis, untruncated)."""
+        std = 1.0 / math.sqrt(self.embedding.shape[1])
+        with torch.no_grad():
+            self.embedding.copy_(torch.randn(self.embedding.shape, generator=generator) * std)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids.long()]

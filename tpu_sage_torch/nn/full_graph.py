@@ -12,27 +12,43 @@ Where the port differs in form from the JAX package, the values agree:
 
 - Columns past a node's degree gather as zero rows (id -1 in the ``masked``
   form). JAX gathers the padding ids and zeroes them with a ``where``, so the
-  sums are the same.
+  sums (mean, gcn, mean_pool) are the same. Max pool and attention still
+  mask those columns with ``finfo.min``, as JAX does.
+- The pools' ``relu(mlp(·))`` is applied to the whole ``h`` once per layer
+  and the projected rows are gathered, where JAX projects each gathered
+  neighbor row; the products are per row, so the values are the same, for
+  about ``max_degree`` times less compute. A zero row of the projected table
+  stands for a padding column (it is zero, not ``relu(bias)``, and is masked
+  like one). Degree-0 nodes take their own projected row.
+- Attention's scores ``⟨q, neigh · W_k⟩`` are computed as
+  ``⟨q · W_kᵀ, neigh⟩``, the same bilinear form in another order, so the
+  keys are never materialised per neighbor.
 - The last chunk is ragged. JAX pads the node axis to whole chunks (zero
   adjacency, degree 0) for its static shapes and drops the padded rows.
-- Dtypes follow JAX's type promotion. The summary stays in the table's
-  dtype: for a bf16 table it is summed with f32 accumulation, rounded once
-  to bf16 and divided in bf16, as XLA does on the CPU. Each projection is a
-  raw ``x @ kernel`` with the f32 kernel (``_dense``), so a bf16 ``x`` gives
-  an f32 product and everything after layer 0's summary is f32. The model's
-  ``Dense`` casts to the compute dtype instead, so it is not used here.
+- Dtypes follow JAX's type promotion. The mean and gcn summaries stay in the
+  table's dtype: for a bf16 table the sum has f32 accumulation, is rounded
+  once to bf16 and divided in bf16, as XLA does on the CPU. Each projection
+  is a raw ``x @ kernel (+ bias)`` with the f32 parameters (``_dense``), so a
+  bf16 ``x`` gives an f32 product and everything after layer 0's summary is
+  f32. The model's ``Dense`` casts to the compute dtype instead, so it is not
+  used here.
+- The ``linear`` and ``node_embedding`` preps apply to the whole table first
+  (the projection; the table concatenated after the features, which
+  promotes a bf16 table to f32).
 
 The partitioned variant (``embed_all_nodes_partitioned``) is ROADMAP Queue 1
-item 14; the gcn, pool and attention summaries are item 8.
+item 14.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from tpu_sage_torch.graph.graph_data import DeviceGraph
+from tpu_sage_torch.nn.aggregators import GCNAggregator
 from tpu_sage_torch.nn.model import GSSupervised, _l2_normalize
 from tpu_sage_torch.ops import row_gather
 
@@ -64,27 +80,59 @@ def _dense(x: torch.Tensor, kernel: torch.Tensor,
 
 
 def _combine_with_params(agg, h_self: torch.Tensor, summary: torch.Tensor) -> torch.Tensor:
-    hs = _dense(h_self, agg.fc_self.kernel)
-    hn = _dense(summary, agg.fc_neigh.kernel)
-    out = torch.cat([hs, hn], dim=-1) if agg.combine == "concat" else hs + hn
+    if isinstance(agg, GCNAggregator):
+        out = _dense(summary, agg.fc.kernel, agg.fc.bias)
+    else:
+        hs = _dense(h_self, agg.fc_self.kernel, agg.fc_self.bias)
+        hn = _dense(summary, agg.fc_neigh.kernel, agg.fc_neigh.bias)
+        out = torch.cat([hs, hn], dim=-1) if agg.combine == "concat" else hs + hn
     return out if agg.activation is None else agg.activation(out)
 
 
+def _neighbor_table(model: GSSupervised, layer_idx: int, h: torch.Tensor) -> torch.Tensor:
+    """What a layer gathers per neighbor: the pools' ``relu(mlp(h))`` for
+    every node, else ``h`` itself."""
+    if model.aggregator_class in ("max_pool", "mean_pool"):
+        mlp = model.agg_layers[layer_idx].mlp
+        return torch.relu(_dense(h, mlp.kernel, mlp.bias))
+    return h
+
+
 def _chunk_combine(model: GSSupervised, layer_idx: int, neigh: torch.Tensor,
-                   d_chunk: torch.Tensor, h_self: torch.Tensor) -> torch.Tensor:
+                   d_chunk: torch.Tensor, h_self: torch.Tensor,
+                   src_self: torch.Tensor) -> torch.Tensor:
     """One chunk of one layer from its gathered neighbor rows ``neigh
-    (chunk, max_degree, d)``, zero past each node's degree ``d_chunk``."""
+    (chunk, max_degree, w)`` of the layer's neighbor table, zero past each
+    node's degree ``d_chunk``; ``src_self`` is the chunk's own rows of that
+    table (degree-0 nodes self-loop through them)."""
     agg_name = model.aggregator_class
-    if agg_name == "mean":
-        dtype = h_self.dtype
-        denom = d_chunk.clamp_min(1)[:, None].to(dtype)
+    agg = model.agg_layers[layer_idx]
+    if agg_name not in EXACT_AGGREGATORS:
+        raise ValueError(f"full-graph inference unsupported for {agg_name}")
+    mask = torch.arange(neigh.shape[1], device=neigh.device) < d_chunk[:, None]
+    isolated = d_chunk[:, None] == 0
+    dtype = h_self.dtype
+    denom = d_chunk.clamp_min(1)[:, None].to(dtype)
+    if agg_name in ("mean", "gcn"):
         summary = neigh.sum(dim=1, dtype=torch.float32).to(dtype) / denom
-        summary = torch.where(d_chunk[:, None] == 0, h_self, summary)
-        return _combine_with_params(model.agg_layers[layer_idx], h_self, summary)
-    if agg_name in EXACT_AGGREGATORS:
-        raise NotImplementedError(
-            f"exact inference for {agg_name!r} is not ported yet (ROADMAP Queue 1 item 8)")
-    raise ValueError(f"full-graph inference unsupported for {agg_name}")
+        summary = torch.where(isolated, h_self, summary)
+        if agg_name == "gcn":
+            # mean(self ∪ neighbors); isolated nodes keep their own row
+            summary = torch.where(isolated, h_self, (summary * denom + h_self) / (denom + 1.0))
+    elif agg_name == "max_pool":
+        neigh.masked_fill_(~mask[:, :, None], torch.finfo(neigh.dtype).min)
+        summary = torch.where(isolated, src_self, neigh.amax(dim=1))
+    elif agg_name == "mean_pool":
+        summary = torch.where(isolated, src_self, neigh.sum(dim=1) / denom)
+    else:  # attention over every true neighbor; padding columns score finfo.min
+        q = _dense(h_self, agg.att_q.kernel)                       # (chunk, K)
+        qk = q @ agg.att_k.kernel.T                                 # (chunk, d)
+        x = neigh.to(torch.promote_types(neigh.dtype, qk.dtype))
+        scores = (x @ qk[:, :, None])[..., 0] / math.sqrt(q.shape[-1])
+        scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        alpha = torch.softmax(scores, dim=-1)
+        summary = torch.where(isolated, h_self, (alpha[:, None, :] @ x)[:, 0])
+    return _combine_with_params(agg, h_self, summary)
 
 
 def _layer_full(model: GSSupervised, layer_idx: int, h: torch.Tensor, graph: DeviceGraph,
@@ -92,12 +140,14 @@ def _layer_full(model: GSSupervised, layer_idx: int, h: torch.Tensor, graph: Dev
     """Aggregation layer ``layer_idx`` applied to every node; ``h (n, d)``."""
     n, max_deg = graph.adj.shape
     cols = torch.arange(max_deg, dtype=torch.int32, device=h.device)
+    src = _neighbor_table(model, layer_idx, h)
     out = None
     for start in range(0, n, chunk):
         adj = graph.adj[start:start + chunk]
         deg = graph.degrees[start:start + chunk]
-        neigh = row_gather(h, torch.where(cols < deg[:, None], adj, -1), form="masked")
-        res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk])
+        neigh = row_gather(src, torch.where(cols < deg[:, None], adj, -1), form="masked")
+        res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk],
+                             src[start:start + chunk])
         del neigh
         if out is None:
             out = torch.empty((n, res.shape[1]), dtype=res.dtype, device=res.device)
@@ -105,14 +155,27 @@ def _layer_full(model: GSSupervised, layer_idx: int, h: torch.Tensor, graph: Dev
     return out
 
 
+def _prep_table(model: GSSupervised, h: torch.Tensor) -> torch.Tensor:
+    """The prep applied to every node's features at once."""
+    if model.prep_class == "linear":
+        return _dense(h, model.prep.fc.kernel)
+    if model.prep_class == "node_embedding":
+        table = model.prep.embedding.embedding
+        if table.shape[0] != h.shape[0]:
+            raise ValueError(
+                f"node_embedding is transductive: its table has {table.shape[0]} rows, "
+                f"the graph {h.shape[0]} nodes")
+        return torch.cat([h, table], dim=-1)
+    return h
+
+
 def embed_all_nodes(model: GSSupervised, graph: DeviceGraph, chunk: int = 4096,
                     with_head: bool = False) -> torch.Tensor:
     """Exact embeddings ``(n, D)`` (or logits with ``with_head``) for all
-    nodes of ``graph``, in f32, on the graph's device. The model's prep is
-    the identity (the only one ported)."""
+    nodes of ``graph``, in f32, on the graph's device."""
     _check_exact_supported(model)
     with torch.inference_mode():
-        h = graph.feats
+        h = _prep_table(model, graph.feats)
         for layer_idx in range(len(model.layer_specs)):
             h = _layer_full(model, layer_idx, h, graph, chunk)
         if model.normalize:

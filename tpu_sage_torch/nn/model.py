@@ -6,9 +6,15 @@ collapses the tree top-down with one aggregator per layer (that layer's
 weights applied at every remaining depth), L2-normalizes the embedding and
 applies a linear head.
 
-With ``fuse_last`` on (``"auto"``, the default) the deepest level is never
-gathered row by row: ``row_gather_fanout_mean`` returns its per-root means in
-one pass, and the first layer's deepest pairing finishes from that summary.
+With ``fuse_last`` on (``"auto"``, the default) and the identity prep, the
+deepest level's rows have one consumer, the first layer's per-root summary,
+which finishes the deepest pairing through ``combine_from_summary``. For
+``mean`` and ``gcn`` the level is never gathered row by row:
+``row_gather_fanout_mean`` returns its per-root means in one pass. For the
+others the level is gathered whole (one ``gather_rows``) and summarised at
+once (``_deepest_summary``); the JAX package gathers and summarises it in
+root-aligned chunks, which gives the same values. ``lstm`` is fused only
+under ``fuse_last="all"``.
 """
 
 from __future__ import annotations
@@ -88,46 +94,59 @@ class GSSupervised(torch.nn.Module):
         feat_dim: int,
         aggregator_class: str = "mean",
         prep_class: str = "identity",
+        n_nodes: int = 0,
+        embedding_dim: int = 64,
         combine: str = "concat",
         normalize: bool = True,
+        agg_hidden_dim: int = 512,
         dtype: Optional[torch.dtype] = None,
         fuse_last: str = "auto",
     ):
         super().__init__()
         if aggregator_class not in aggregator_lookup:
-            raise NotImplementedError(
-                f"aggregator {aggregator_class!r} is not ported yet (ROADMAP Queue 1 item 8)")
+            raise ValueError(f"unknown aggregator_class: {aggregator_class!r}")
         if prep_class not in prep_lookup:
-            raise NotImplementedError(
-                f"prep {prep_class!r} is not ported yet (ROADMAP Queue 1 item 8)")
+            raise ValueError(f"unknown prep_class: {prep_class!r}")
         if fuse_last not in ("auto", "off", "all"):
             raise ValueError(f"unknown fuse_last: {fuse_last!r}")
         self.layer_specs = tuple(layer_specs)
         self.aggregator_class = aggregator_class
+        self.prep_class = prep_class
         self.normalize = normalize
         self.fuse_last = fuse_last
-        self.prep = prep_lookup[prep_class]()
+        self.prep = prep_lookup[prep_class](feat_dim, n_nodes=n_nodes,
+                                            embedding_dim=embedding_dim)
         agg_cls = aggregator_lookup[aggregator_class]
-        layers, in_dim = [], feat_dim
+        layers, in_dim = [], self.prep.out_dim()
         for spec in self.layer_specs:
             agg = agg_cls(in_dim, spec.output_dim, activation=activation_lookup[spec.activation],
-                          combine=combine, dtype=dtype)
+                          combine=combine, hidden_dim=agg_hidden_dim, dtype=dtype)
             layers.append(agg)
             in_dim = agg.out_dim()
         self.agg_layers = torch.nn.ModuleList(layers)
         self.fc = Dense(in_dim, n_classes, use_bias=True, dtype=dtype)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """Fresh init from ``generator``: lecun-normal kernels, zero bias."""
-        for agg in self.agg_layers:
-            agg.fc_self.reset_parameters(generator)
-            agg.fc_neigh.reset_parameters(generator)
-        self.fc.reset_parameters(generator)
+        """Fresh init from ``generator``, module by module in registration
+        order: lecun-normal kernels (orthogonal for the LSTM's ``hz``), zero
+        biases, the embedding table's normal."""
+        for module in self.modules():
+            if module is not self and hasattr(module, "reset_parameters"):
+                module.reset_parameters(generator)
+
+    def fuses_last(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> bool:
+        """The JAX package's ``fuse_last`` policy: summarise the deepest level
+        right after its gather when the prep is the identity, the tree has two
+        levels or more, ``fuse_last`` is not ``"off"``, and the aggregator is
+        not ``lstm`` unless ``fuse_last`` is ``"all"``."""
+        return (feats is not None and self.prep_class == "identity" and len(levels) >= 2
+                and self.fuse_last != "off"
+                and (self.aggregator_class != "lstm" or self.fuse_last == "all"))
 
     def encode(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
         """Collapse the neighborhood tree into per-root embeddings ``(B, D)``;
         the per-level gathers happen here."""
-        fuse_last = feats is not None and len(levels) >= 2 and self.fuse_last != "off"
+        fuse_last = self.fuses_last(levels, feats)
         gathered = [
             None if feats is None else row_gather(feats, ids)
             for ids in (levels[:-1] if fuse_last else levels)
@@ -135,11 +154,25 @@ class GSSupervised(torch.nn.Module):
         if not fuse_last:
             return self.encode_gathered(levels, gathered)
         fanout = levels[-1].shape[0] // levels[-2].shape[0]
-        # f32 means, rounded to the table's dtype as the reference's jnp.mean
-        # of the gathered rows returns it
-        means = row_gather_fanout_mean(feats, levels[-1], fanout).to(feats.dtype)
-        gathered.append(means)
+        if self.aggregator_class in ("mean", "gcn"):
+            # f32 means, rounded to the table's dtype as the reference's
+            # jnp.mean of the gathered rows returns it
+            summary = row_gather_fanout_mean(feats, levels[-1], fanout).to(feats.dtype)
+        else:
+            summary = self._deepest_summary(levels, gathered[-1], feats, fanout)
+        gathered.append(summary)
         return self.encode_gathered(levels, gathered, last_reduced_fanout=fanout)
+
+    def _deepest_summary(self, levels: List[torch.Tensor], x_self_rows: torch.Tensor,
+                         feats: torch.Tensor, fanout: int) -> torch.Tensor:
+        """The deepest level gathered in one launch and summarised per root by
+        the first aggregator (pooled MLP, attention over the root's own group,
+        LSTM over it); ``x_self_rows`` are the level above's rows (the
+        attention's queries)."""
+        rows = row_gather(feats, levels[-1])
+        n_roots = levels[-2].shape[0]
+        return self.agg_layers[0].neigh_summary(x_self_rows,
+                                                rows.reshape(n_roots, fanout, -1))
 
     def encode_gathered(
         self,

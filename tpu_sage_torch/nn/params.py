@@ -1,15 +1,22 @@
 """Parameter carry-over between the JAX package's flax trees and the port.
 
 The flax tree of ``GSSupervised`` (and the ``.npz`` checkpoint's ``/``-joined
-keys, ``tpu_sage/train/checkpoint.py``) holds::
+keys, ``tpu_sage/train/checkpoint.py``) holds, by aggregator and prep::
 
-    params/agg_layers_{i}/fc_self/kernel    (in, out), no bias
-    params/agg_layers_{i}/fc_neigh/kernel   (in, out), no bias
-    params/fc/kernel                        (in, n_classes)
-    params/fc/bias                          (n_classes,)
+    params/agg_layers_{i}/fc_self/{kernel,bias}     mean, attention: no bias
+    params/agg_layers_{i}/fc_neigh/{kernel,bias}    (pools, lstm: biased)
+    params/agg_layers_{i}/fc/{kernel,bias}          gcn (its only branch)
+    params/agg_layers_{i}/mlp/{kernel,bias}         max_pool, mean_pool
+    params/agg_layers_{i}/att_q/kernel              attention
+    params/agg_layers_{i}/att_k/kernel
+    params/agg_layers_{i}/lstm/xz/kernel            lstm, (in, 4H)
+    params/agg_layers_{i}/lstm/cell/hz/{kernel,bias}     (H, 4H)
+    params/prep/fc/kernel                           linear prep
+    params/prep/embedding/embedding                 node_embedding, (n_nodes, dim)
+    params/fc/kernel, params/fc/bias                the head
 
-The port's ``Dense`` keeps the same ``(in, out)`` layout, so each tensor maps
-one to one.
+The port's modules carry the same names and its ``Dense`` the same
+``(in, out)`` layout, so each tensor maps one to one through ``flax_key``.
 """
 
 from __future__ import annotations

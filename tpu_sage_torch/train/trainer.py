@@ -116,9 +116,6 @@ def check_ported(config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a config that asks for a path the port
     does not have yet, naming its ROADMAP item."""
     missing = [
-        (config.aggregator_class != "mean",
-         f"aggregator {config.aggregator_class!r}", "Queue 1 item 8"),
-        (config.prep_class != "identity", f"prep {config.prep_class!r}", "Queue 1 item 8"),
         (config.feature_int8, "feature_int8", "Queue 1 item 10"),
         (config.fuse_first_layer, "fuse_first_layer", "Queue 1 item 13"),
     ]
@@ -155,9 +152,7 @@ def fold_metric_np(task: str, logits: np.ndarray, targets: np.ndarray) -> float:
 def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
                 feat_dim: int) -> GSSupervised:
     """The model on the CPU, parameters not yet drawn (``Trainer.init_state``
-    draws them). ``n_nodes`` is kept for the reference's signature; only the
-    node-embedding prep, not ported yet, needs it."""
-    del n_nodes
+    draws them). ``n_nodes`` sizes the node-embedding prep's table."""
     check_ported(config)
     specs = default_layer_specs(
         fanouts=config.n_train_samples,
@@ -170,8 +165,11 @@ def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
         feat_dim=feat_dim,
         aggregator_class=config.aggregator_class,
         prep_class=config.prep_class,
+        n_nodes=n_nodes,
+        embedding_dim=config.embedding_dim,
         combine=config.combine,
         normalize=config.normalize,
+        agg_hidden_dim=config.agg_hidden_dim,
         dtype=None if config.compute_dtype == "float32" else COMPUTE_DTYPES[config.compute_dtype],
         fuse_last=config.fuse_last,
     )
