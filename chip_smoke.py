@@ -8,7 +8,7 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the six kernels from
+2. build: compiles the CUDA sources of the eight kernels from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
@@ -66,7 +66,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    falling, a sampled val metric, ms/step, edges/s and busy share; and each
    new aggregator's exact pass on the f32 and bf16 tables (median of 3,
    nodes/s, busy share, kernel time by name);
-8. prints each phase's wall time and the kernels line (the off-path cases
+8. storage: int8 features and CSR adjacency. The int8 fanout mean
+   (``gather_fanout_mean_int8``, both modes, bf16 and f32 out, at 12,800
+   roots × F = 10 × 602) and the CSR hop (``sample_hop_csr``, both hops on
+   ``bench_store``'s CSR and on a Reddit-shaped SBM store's) bitwise against
+   their plain versions and timed; the reference's window-pair composition
+   (``gather_rows`` and ``select_columns``) bitwise the fused CSR hop;
+   fanouts above 32, degree-0 and tail rows, ids out of range; CSR trees
+   bitwise the dense tree at full width for one generator state; the main
+   path's configuration for 20 steps with ``feature_int8``, CSR and both,
+   launches per step exact; the int8 model's sampled logits card against
+   CPU; ``assortative_bench_store()`` trained by ``fit`` with exact
+   validation in bf16 and in int8 (val metrics, resident table bytes;
+   dense against CSR adjacency bytes on the SBM store); the CLI with
+   ``--feature-int8 --csr-adjacency`` for one epoch at 232,965 nodes;
+9. prints each phase's wall time and the kernels line (the off-path cases
    among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
@@ -109,6 +123,8 @@ PPI = dict(n_nodes=56_944, feat_dim=50, n_classes=121, avg_degree=14, max_degree
            task="multilabel_classification", seed=6)
 SAMPLED_ROOTS = 32
 SAMPLED_TOL = 3e-2  # x max|logit|, phase 4's bf16 limit
+# phase 8: int8 feature storage and CSR adjacency
+STORAGE_STEPS, QUALITY_EPOCHS = 20, 3
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -130,25 +146,38 @@ SOURCES = {
                            "tpu_sage/kernels/gather_mean.py:93"),
     "mean_project": ("tpu_sage_torch/kernels/csrc/mean_project.cu",
                      "tpu_sage/kernels/mean_project.py:56"),
+    "gather_fanout_mean_int8": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
+                                "tpu_sage/kernels/gather_mean.py:93 on an int8 table "
+                                "(tpu_sage/data/quantize.py:68, XLA in JAX)"),
+    "sample_hop_csr": ("tpu_sage_torch/kernels/csrc/select.cu",
+                       "tpu_sage/kernels/select.py:29 in the CSR hops of "
+                       "tpu_sage/sample/csr.py:67,130"),
 }
 
 
-def per_step_launches(agg, prep, fuse_last):
+def per_step_launches(agg, prep, fuse_last, int8=False, csr=False):
     """Kernel launches of one training step (``encode`` with the fused
-    sampler): 2 hops; the levels' gathers, the deepest level summarised by
-    ``gather_fanout_mean`` when it is fused under mean or gcn (else gathered
-    whole, fused or not); ``mean_project`` for each mean pairing of an
-    unreduced neighborhood (2 when the deepest level is fused, else 3; a
-    prep's f32 rows under bf16 go through it too)."""
+    sampler): 2 hops (``sample_hop``, or ``sample_hop_csr`` on CSR
+    adjacency); the levels' gathers (of int8 rows on an int8 table), the
+    deepest level summarised by ``gather_fanout_mean`` (its int8 entry on an
+    int8 table) when it is fused under mean or gcn (else gathered whole,
+    fused or not); ``mean_project`` for each mean pairing of an unreduced
+    neighborhood (2 when the deepest level is fused, else 3; a prep's f32
+    rows under bf16 go through it too)."""
     fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
     summary_kernel = fused and agg in ("mean", "gcn")
     mean_project = 0 if agg != "mean" else 2 if fused else 3
-    return {"select_columns": 0, "sample_hop": 2, "gather_rows": 2 if summary_kernel else 3,
-            "gather_rows_blockspec": 0, "gather_fanout_mean": int(summary_kernel),
-            "mean_project": mean_project}
+    return {"select_columns": 0, "sample_hop": 0 if csr else 2,
+            "gather_rows": 2 if summary_kernel else 3, "gather_rows_blockspec": 0,
+            "gather_fanout_mean": int(summary_kernel and not int8),
+            "mean_project": mean_project,
+            "gather_fanout_mean_int8": int(summary_kernel and int8),
+            "sample_hop_csr": 2 if csr else 0}
 
 
 PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
+# the main path's configuration on an int8 table and CSR adjacency (phase 8)
+STORAGE_PER_STEP = per_step_launches("mean", "identity", "auto", int8=True, csr=True)
 
 
 def log(*args):
@@ -852,9 +881,10 @@ def serving_path(torch, np, smi, peaks, tmp):
     return {"cli_fit": fit_counts, "export": export_counts}
 
 
-def train_run(torch, np, label, problem, cfg, steps, warmup):
+def train_run(torch, np, label, problem, cfg, steps, warmup, csr=False):
     """``steps`` timed ``train_step``s of ``cfg`` on ``problem`` (after
-    ``warmup``), the launch counts from 0 checked per step exactly, the loss
+    ``warmup``; ``csr``: on CSR adjacency, ``cfg.feature_int8``: on the int8
+    table), the launch counts from 0 checked per step exactly, the loss
     finite and falling, a sampled val metric, and a profile of PROFILE_STEPS
     more steps. Returns the run's record and its launch counts (train and
     eval)."""
@@ -868,7 +898,8 @@ def train_run(torch, np, label, problem, cfg, steps, warmup):
     dtype = COMPUTE_DTYPES[cfg.compute_dtype]
     model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
     trainer = Trainer(model, cfg, steps_per_epoch=len(train_ids) // b, task=problem.task)
-    graph = problem.device_graph(train=True, dtype=dtype, device="cuda")
+    storage = dict(dtype=dtype, device="cuda", csr=csr, quantize=cfg.feature_int8)
+    graph = problem.device_graph(train=True, **storage)
     state = trainer.init_state(graph)
     perm = np.random.default_rng(5).permutation(train_ids)
     batches = [torch.as_tensor(perm[i * b:(i + 1) * b], dtype=torch.int32, device="cuda")
@@ -885,7 +916,8 @@ def train_run(torch, np, label, problem, cfg, steps, warmup):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     train_counts = kernels.launch_counts()
-    want = per_step_launches(cfg.aggregator_class, cfg.prep_class, cfg.fuse_last)
+    want = per_step_launches(cfg.aggregator_class, cfg.prep_class, cfg.fuse_last,
+                             int8=cfg.feature_int8, csr=csr)
     if train_counts != {k: n * steps for k, n in want.items()}:
         raise AssertionError(f"{label}: launches in {steps} steps {train_counts}, expected "
                              f"{want} per step")
@@ -895,7 +927,7 @@ def train_run(torch, np, label, problem, cfg, steps, warmup):
     if not (np.isfinite(losses).all() and last < first):
         raise AssertionError(f"{label}: losses {losses} not finite and falling")
     val_ids = problem.folds["val"][:EVAL_NODES]
-    val = trainer.evaluate(problem.device_graph(train=False, dtype=dtype, device="cuda"),
+    val = trainer.evaluate(problem.device_graph(train=False, **storage),
                            val_ids, problem.store.targets[val_ids],
                            torch.Generator(device="cuda").manual_seed(cfg.seed + 1))
     if not 0.0 <= val <= 1.0:
@@ -912,7 +944,8 @@ def train_run(torch, np, label, problem, cfg, steps, warmup):
     edges = b * (cfg.n_train_samples[0] + cfg.n_train_samples[0] * cfg.n_train_samples[1])
     device_ms = sum(k[1] for k in kern)
     rec = {"run": label, "aggregator": cfg.aggregator_class, "prep": cfg.prep_class,
-           "compute_dtype": cfg.compute_dtype, "batch": b, "fanouts": list(cfg.n_train_samples),
+           "compute_dtype": cfg.compute_dtype, "feature_int8": cfg.feature_int8, "csr": csr,
+           "batch": b, "fanouts": list(cfg.n_train_samples),
            "steps": steps, "ms_per_step": ms_step, "edges_per_s": edges * steps / dt,
            "loss_first": float(first), "loss_last": float(last),
            f"val_{'f1' if problem.task == 'multilabel_classification' else 'accuracy'}": val,
@@ -1092,8 +1125,8 @@ def phase_aggregators(torch, np, problem, graph, levels, smi, peaks):
     store, see REDDIT_SBM), ``configs/pubmed_maxpool.json`` and
     ``configs/ppi_lstm.json`` unchanged on Pubmed- and PPI-shaped SBM
     stores, and the linear and node-embedding preps; (e) the exact pass of
-    each new aggregator on the f32 and bf16 tables. Returns the kernel cases
-    and the launch counts of (d)."""
+    each new aggregator on the f32 and bf16 tables. Returns the kernel cases,
+    the launch counts of (d) and the Reddit-shaped SBM problem (phase 8's)."""
     import os
 
     from tpu_sage_torch.data.problem import NodeProblem
@@ -1148,7 +1181,326 @@ def phase_aggregators(torch, np, problem, graph, levels, smi, peaks):
     log(smi)
     log(json.dumps({"aggregators": {"runs": runs, "exact_pass": passes,
                                     "nodes": problem.n_nodes, "chunk": EXACT_CHUNK}}))
-    return results, total
+    return results, total, stand_ins["Reddit-shaped SBM"]
+
+
+def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
+    """Phase 8 (a): the int8 fanout mean, the int8 rows' gathers and the CSR
+    hop against their plain versions, bitwise, at the main path's shapes,
+    timed (kernel, plain, library, bound); the window-pair composition (``gather_rows`` ×4 and
+    ``select_columns``) against the fused CSR hop; and edge cases: fanouts
+    above 32 for both fanout means, degree-0 and tail nodes, out-of-range
+    ids, CSR indices without window padding. Returns the timed cases and the
+    window pair's launch counts."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.kernels import gather, gather_mean, sample_hop
+    from tpu_sage_torch.sample.csr import csr_from_padded, window_pair_hop
+
+    bw, _, f32_peak = peaks
+    cases = []
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def distinct(t):
+        return int(torch.unique(t).numel())
+
+    # int8 fanout mean at the deepest level: 128,000 ids, F = 10, 602 columns
+    qf = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                              quantize=True).feats
+    q, scale = qf.q, qf.scale
+    l2 = levels[2]
+    f = FANOUTS[1]
+    r, d = l2.shape[0] // f, q.shape[1]
+    l2_64 = l2.long()
+    nd = distinct(l2)
+    c = scale * gather_mean.reciprocal(f)
+    for dtype in (torch.bfloat16, torch.float32):
+        for summean in (True, False):
+            if summean:
+                lib = lambda dt=dtype: (q[l2_64].view(r, f, d).to(torch.int32).sum(1).float()
+                                        * c).to(dt)
+            else:
+                lib = lambda dt=dtype: (q[l2_64] * scale.to(dt)).float().view(r, f, d).mean(
+                    1).to(dt)
+            out_bytes = 2 if dtype == torch.bfloat16 else 4
+            cases.append(kernel_case(
+                "gather_fanout_mean_int8",
+                f"int8 {tuple(q.shape)} ids={l2.shape[0]} F={f} -> {str(dtype)[6:]}, "
+                f"{'int32 sum' if summean else 'dequantize then mean'}",
+                lambda dt=dtype, sm=summean: gather_mean.gather_fanout_mean_int8(q, scale, l2, f,
+                                                                                 dt, sm),
+                lambda dt=dtype, sm=summean: gather_mean.gather_fanout_mean_int8_reference(
+                    q, scale, l2, f, dt, sm),
+                lib, 4 * l2.shape[0] + nd * d + r * d * out_bytes + 4 * d,
+                flops=l2.shape[0] * d * (1 if summean else 2), peak=f32_peak,
+                weight=int(dtype == torch.bfloat16 and summean)))
+
+    # gather_rows on the int8 step's rows: levels 0 and 1 of the int8 table,
+    # 602-byte rows (weight 0: the kernel's step weight is the main path's)
+    for ids in levels[:2]:
+        n_ids = ids.shape[0]
+        cases.append(kernel_case(
+            "gather_rows", f"int8 rows {tuple(q.shape)} q={n_ids}",
+            lambda i=ids: gather.gather_rows(q, i), lambda i=ids: gather.gather_rows_reference(q, i),
+            lambda i=ids.long(): q[i], 4 * n_ids + distinct(ids) * d + n_ids * d, weight=0))
+
+    # the CSR hop on bench_store's CSR (hop 1: 512 ids x 25, hop 2: 12,800 x
+    # 10) and on the Reddit-shaped SBM store's, window form (the padded
+    # indices the trainer uploads). Bytes: the ids, each distinct 32-byte
+    # sector of degrees and of indptr, the distinct 32-byte sectors of
+    # indices the picks hit, u and out. The library yardstick is one indexed
+    # load with the columns and the degree-0 select precomputed.
+    window_counts = {}
+    for label, prob, roots, weight in (("bench_store", problem, levels[0], 1),
+                                       ("Reddit-shaped SBM", sbm, None, 0)):
+        g = prob.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=True)
+        if roots is None:
+            roots = torch.as_tensor(prob.folds["train"][:BATCH], dtype=torch.int32,
+                                    device="cuda")
+        ids = roots
+        for hop, fo in enumerate(FANOUTS):
+            u = torch.rand((ids.shape[0], fo), generator=gen, device="cuda")
+            ids64 = ids.long()
+            deg = g.degrees[ids64]
+            cols = sample_hop.hop_columns(u, deg.clamp_min(1)).long()
+            pos = g.indptr[ids64].long()[:, None] + cols
+            live = (deg > 0)[:, None].expand_as(pos)
+            nbytes = (4 * ids.shape[0] + 2 * 32 * distinct(ids64 // 8)
+                      + 32 * distinct(pos[live] // 8) + 8 * u.numel())
+            cases.append(kernel_case(
+                "sample_hop_csr", f"{label} hop {hop + 1}: ids ({ids.shape[0]},), u "
+                f"{tuple(u.shape)}, indices ({g.indices.shape[0]},), window {g.window}",
+                lambda i=ids, u=u, g=g: sample_hop.sample_hop_csr(g.indptr, g.indices,
+                                                                  g.degrees, i, u),
+                lambda i=ids, u=u, g=g: sample_hop.sample_hop_csr_reference(
+                    g.indptr, g.indices, g.degrees, i, u),
+                lambda i=ids, p=pos, dg=deg, g=g: torch.where(
+                    dg[:, None] == 0, i[:, None], g.indices[p]),
+                nbytes, weight=weight))
+            fused = sample_hop.sample_hop_csr(g.indptr, g.indices, g.degrees, ids, u)
+            kernels.reset_launch_counts()
+            pair = window_pair_hop(g.indptr, g.indices, g.degrees, ids, u, g.window)
+            torch.cuda.synchronize()
+            for k, v in kernels.launch_counts().items():
+                window_counts[k] = window_counts.get(k, 0) + v
+            if not torch.equal(pair, fused):
+                raise AssertionError(f"{label} hop {hop + 1}: the window-pair composition "
+                                     f"differs from the fused CSR hop")
+            ids = fused.reshape(-1)
+    results = time_cases(torch, cases, bw)
+
+    # edge cases: fanouts above 32 (both fanout means), CSR rows of degree 0
+    # (the tail node's start is nnz when indices carry no padding), ids out
+    # of range, u = 0 and u one ulp below 1
+    for fo in (33, 40):
+        ids = torch.randint(0, q.shape[0], (300 * fo,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        for dtype in (torch.bfloat16, torch.float32):
+            for summean in (True, False):
+                if not torch.equal(
+                        gather_mean.gather_fanout_mean_int8(q, scale, ids, fo, dtype, summean),
+                        gather_mean.gather_fanout_mean_int8_reference(q, scale, ids, fo, dtype,
+                                                                      summean)):
+                    raise AssertionError(f"gather_fanout_mean_int8 F={fo} {dtype} "
+                                         f"summean={summean} differs from its plain version")
+        if not torch.equal(gather_mean.gather_fanout_mean(graph.feats, ids, fo),
+                           gather_mean.gather_fanout_mean_reference(graph.feats, ids, fo)):
+            raise AssertionError(f"gather_fanout_mean F={fo} differs from its plain version")
+    n, maxd = 50_000, 128
+    deg = torch.randint(0, maxd + 1, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    deg[::97], deg[-3:] = 0, 0
+    adj = torch.randint(0, n, (n, maxd), generator=gen, device="cuda", dtype=torch.int32)
+    indptr, indices = (torch.as_tensor(a, device="cuda")
+                       for a in csr_from_padded(adj.cpu().numpy(), deg.cpu().numpy()))
+    ids = torch.cat([torch.tensor([n - 1, n - 2, n - 4, -1, -n - 3, n, n + 5], device="cuda",
+                                  dtype=torch.int32),
+                     torch.randint(0, n, (4089,), generator=gen, device="cuda",
+                                   dtype=torch.int32)])
+    u = torch.rand((ids.shape[0], 25), generator=gen, device="cuda")
+    u[:, 0], u[:, 1] = 0.0, 1.0 - 2.0 ** -24
+    if not torch.equal(sample_hop.sample_hop_csr(indptr, indices, deg, ids, u),
+                       sample_hop.sample_hop_csr_reference(indptr, indices, deg, ids, u)):
+        raise AssertionError("sample_hop_csr differs from its plain version at its edge cases")
+    torch.cuda.synchronize()
+    log("  fanouts 33 and 40 (both fanout means, bitwise), the CSR hop at degree 0, tail "
+        "rows without window padding, ids out of range, u at 0 and one ulp below 1: ok; "
+        f"window-pair composition bitwise the fused CSR hop, launches {window_counts}")
+    return results, window_counts
+
+
+def check_storage_trees(torch, problem, sbm):
+    """Phase 8 (b): at full width, one generator state, the CSR tree (window
+    and element hops) equals the dense tree bitwise, each with its own
+    launch counts, on bench_store and on the Reddit-shaped SBM store."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.sample.csr import graph_sample_tree
+
+    for label, prob in (("bench_store", problem), ("Reddit-shaped SBM", sbm)):
+        roots = torch.as_tensor(prob.folds["train"][:BATCH], dtype=torch.int32, device="cuda")
+        dense = prob.device_graph(train=True, dtype=torch.bfloat16, device="cuda")
+        csr_graph = prob.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=True)
+        trees, counts = [], []
+        for g, window in ((dense, None), (csr_graph, csr_graph.window), (csr_graph, 0)):
+            saved = csr_graph.window
+            if window is not None:
+                csr_graph.window = window
+            kernels.reset_launch_counts()
+            trees.append(graph_sample_tree(g, roots, FANOUTS,
+                                           generator=torch.Generator(device="cuda").manual_seed(3)))
+            torch.cuda.synchronize()
+            csr_graph.window = saved
+            counts.append({k: v for k, v in kernels.launch_counts().items() if v})
+        if counts != [{"sample_hop": 2}, {"sample_hop_csr": 2}, {"sample_hop_csr": 2}]:
+            raise AssertionError(f"{label}: tree launch counts {counts}")
+        for t in trees[1:]:
+            for level, (a, b) in enumerate(zip(trees[0], t)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the CSR tree differs from the dense tree "
+                                         f"at level {level}")
+        log(f"  {label}: CSR trees (window {csr_graph.window}, element) "
+            f"{[tuple(t.shape) for t in trees[1]]} bitwise the dense tree; launches per tree "
+            f"{counts}")
+
+
+def check_int8_sampled_card_vs_cpu(torch):
+    """Phase 8 (d): sampled bf16 logits of the int8 mean model (both
+    ``int8_summean`` modes) on a CHECK_NODES full-width store, the same
+    parameters and levels on the card and on the CPU's plain path, within
+    SAMPLED_TOL of their scale."""
+    import copy
+
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import bench_store
+    from tpu_sage_torch.sample.sampler import sample_tree
+    from tpu_sage_torch.train.trainer import build_model
+
+    problem = NodeProblem(bench_store(n_nodes=CHECK_NODES, seed=1, cache_dir="0"))
+    dense = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda")
+    roots = torch.as_tensor(problem.folds["train"][:SAMPLED_ROOTS], dtype=torch.int32,
+                            device="cuda")
+    levels = sample_tree(dense.adj, dense.degrees, roots, FANOUTS,
+                         generator=torch.Generator(device="cuda").manual_seed(29))
+    for summean in (True, False):
+        cfg = aggregator_config("mean", feature_int8=True, int8_summean=summean)
+        model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+        model.reset_parameters(torch.Generator().manual_seed(11))
+        want, got = (
+            copy.deepcopy(model).to(dev)(
+                [l.to(dev) for l in levels],
+                problem.device_graph(train=True, dtype=torch.bfloat16, device=dev,
+                                     quantize=True).feats).detach().float().cpu()
+            for dev in ("cpu", "cuda"))
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if not (bool(torch.isfinite(got).all()) and err <= SAMPLED_TOL * scale):
+            raise AssertionError(f"int8 sampled logits (int8_summean={summean}): card vs CPU "
+                                 f"max abs err {err} > {SAMPLED_TOL} x {scale}")
+        log(f"  int8 mean model, int8_summean={summean}, bf16 logits {tuple(got.shape)}: card "
+            f"vs CPU max abs err {err:.4g} (limit {SAMPLED_TOL * scale:.4g})")
+
+
+def storage_quality(torch, np, sbm):
+    """Phase 8 (e): ``assortative_bench_store()`` (232,965 × 602, 41
+    classes, the label signal in the edges) trained by ``fit`` at the main
+    path's configuration, bf16 and int8 tables, with exact validation,
+    QUALITY_EPOCHS each; the resident table bytes of both, and the
+    adjacency bytes of dense against CSR on the Reddit-shaped SBM store."""
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import assortative_bench_store
+    from tpu_sage_torch.train.trainer import TrainConfig, fit
+
+    t0 = time.perf_counter()
+    problem = NodeProblem(assortative_bench_store())
+    build_s = time.perf_counter() - t0
+    runs = {}
+    for label, int8 in (("bf16", False), ("int8", True)):
+        cfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                          output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01,
+                          epochs=QUALITY_EPOCHS, exact_val=True, feature_int8=int8)
+        recs = []
+        t0 = time.perf_counter()
+        fit(problem, cfg, log=recs.append, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        epochs = [r for r in recs if "elapsed" in r]
+        vals = [r["val_metric"] for r in epochs]
+        losses = [r["train_loss"] for r in epochs]
+        test = [r["final_test_metric"] for r in recs if "final_test_metric" in r]
+        if not (len(vals) == QUALITY_EPOCHS and np.isfinite(losses).all()
+                and losses[-1] < losses[0] and all(0.0 <= v <= 1.0 for v in vals) and test):
+            raise AssertionError(f"quality run {label}: losses {losses}, val {vals}")
+        feats = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                                     quantize=int8).feats
+        runs[label] = {"val_metric": vals, "train_loss": losses, "test_metric": test[0],
+                       "epoch_s": [r["elapsed"] for r in epochs], "wall_s": wall,
+                       "table_bytes": (feats.nbytes if int8
+                                       else feats.numel() * feats.element_size())}
+    dense = sbm.device_graph(train=False, dtype=torch.bfloat16, device="cuda")
+    csr_graph = sbm.device_graph(train=False, dtype=torch.bfloat16, device="cuda", csr=True)
+    adjacency = {"dense_bytes": dense.adj.numel() * 4 + dense.degrees.numel() * 4,
+                 "csr_bytes": 4 * (csr_graph.indptr.numel() + csr_graph.indices.numel()
+                                   + csr_graph.degrees.numel()),
+                 "nnz": int(csr_graph.indptr[-1]), "window": csr_graph.window}
+    log(json.dumps({"storage_quality": {"store": "assortative_bench_store()",
+                                        "store_build_s": build_s, "runs": runs,
+                                        "sbm_full_graph_adjacency": adjacency}}))
+
+
+def storage_cli(torch):
+    """Phase 8 (f): ``tpu_sage_torch.cli.main`` with ``--feature-int8
+    --csr-adjacency`` for one epoch on the 232,965-node Reddit-shaped store
+    at the main path's configuration (sampled validation on the CSR full
+    graph); its launch counts from 0, which must include both new kernels
+    and neither dense counterpart."""
+    from tpu_sage_torch import cli, kernels
+
+    argv = ["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES),
+            "--feature-int8", "--csr-adjacency", "--compute-dtype", "bfloat16",
+            "--batch-size", str(BATCH), "--n-train-samples", "25,10", "--n-val-samples",
+            "25,10", "--output-dims", "128,128", "--epochs", "1"]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("the CLI run with --feature-int8 --csr-adjacency failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if not (counts["gather_fanout_mean_int8"] > 0 and counts["sample_hop_csr"] > 0
+            and counts["gather_fanout_mean"] == 0 and counts["sample_hop"] == 0):
+        raise AssertionError(f"CLI --feature-int8 --csr-adjacency launches {counts}")
+    log(f"  CLI --feature-int8 --csr-adjacency, 1 epoch at {SERVING_NODES} nodes in "
+        f"{wall:.1f} s; launches {counts}")
+    return counts
+
+
+def phase_storage(torch, np, problem, graph, levels, sbm, smi, peaks):
+    """Phase 8: int8 feature storage and CSR adjacency. (a) the two new
+    kernels against their plain versions; (b) CSR trees against dense
+    trees; (c) the main path's configuration for STORAGE_STEPS timed steps
+    with feature_int8, CSR and both, launch counts exact; (d) int8 card
+    against CPU; (e) quality on the assortative store, bf16 against int8;
+    (f) the CLI with both flags. Returns the timed cases and the launch
+    counts of (a)'s window pair, (c) and (f)."""
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    results, window_counts = storage_cases(torch, np, problem, graph, levels, sbm, peaks)
+    check_storage_trees(torch, problem, sbm)
+    by_path = {"storage_window_pair": window_counts}
+    runs = []
+    for label, int8, csr in (("feature_int8", True, False), ("csr", False, True),
+                             ("feature_int8 + csr", True, True)):
+        cfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                          output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01, epochs=1,
+                          feature_int8=int8)
+        rec, counts = train_run(torch, np, f"main path, {label}", problem, cfg, STORAGE_STEPS,
+                                WARMUP_STEPS, csr=csr)
+        runs.append(rec)
+        by_path[f"storage_train_{label.replace(' + ', '_')}"] = counts
+    check_int8_sampled_card_vs_cpu(torch)
+    storage_quality(torch, np, sbm)
+    by_path["storage_cli"] = storage_cli(torch)
+    log(smi)
+    log(json.dumps({"storage": {"runs": runs}}))
+    return results, by_path
 
 
 def main() -> int:
@@ -1193,7 +1545,7 @@ def main() -> int:
     phase("phase 2: build")
     t0 = time.perf_counter()
     _build.build()
-    log(f"  built {len(_build.SOURCES)} kernels with nvcc in {time.perf_counter() - t0:.2f} s "
+    log(f"  built the {len(_build.SOURCES)} kernel sources with nvcc in {time.perf_counter() - t0:.2f} s "
         f"into {_build.BUILD_DIR}")
     for src in _build.SOURCES:
         log(f"  {src}.cu -Xptxas -v: {'; '.join(ptxas_report(_build.library_path(src)[1] + '.log'))}")
@@ -1222,9 +1574,15 @@ def main() -> int:
     by_path.update(phase_serving(torch, np, smi, peaks))
 
     phase("phase 7: aggregators")
-    agg_results, by_path["aggregators"] = phase_aggregators(torch, np, problem, graph, levels,
-                                                            smi, peaks)
+    agg_results, by_path["aggregators"], sbm = phase_aggregators(torch, np, problem, graph,
+                                                                 levels, smi, peaks)
     results += agg_results
+
+    phase("phase 8: storage (int8 features, CSR adjacency)")
+    storage_results, storage_paths = phase_storage(torch, np, problem, graph, levels, sbm, smi,
+                                                   peaks)
+    results += storage_results
+    by_path.update(storage_paths)
     phase(None)
 
     kernels_line = []
@@ -1232,14 +1590,17 @@ def main() -> int:
         rows = [r for r in results if r["kernel"] == name_k]
         # one step's calls: each main-path case once (the foil: the cases
         # gather_rows has on the main path; select_columns, which the main
-        # path no longer launches: one packed tree's two hops); the
-        # exact-inference gathers have weight 0 and stand in "cases"
+        # path no longer launches: one packed tree's two hops; the int8 and
+        # CSR kernels: one step of the main path's configuration on an int8
+        # table and CSR adjacency); the exact-inference gathers and the other
+        # storage cases have weight 0 and stand in "cases"
         step = lambda key: sum(r[key] * r["weight"] for r in rows)  # noqa: E731
         kernels_line.append({
             "name": name_k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(c[name_k] for c in by_path.values()),
             "launches_by_path": {path: c[name_k] for path, c in by_path.items()},
             "launches_per_step": PER_STEP[name_k],
+            "launches_per_step_int8_csr": STORAGE_PER_STEP[name_k],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)

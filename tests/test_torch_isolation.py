@@ -51,3 +51,37 @@ def test_forbidden_pattern_catches_what_it_should():
     for line in ("import tpu_sage_torch", "from tpu_sage_torch.ops import row_gather",
                  "# tpu_sage/kernels/select.py", "import jaxtyping_like_name_x"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_the_port_exports_the_reference_public_names():
+    """``from tpu_sage_torch import GSSupervised`` works as it does from
+    ``tpu_sage``: the same 12 names, each the port's counterpart."""
+    import tpu_sage
+    import tpu_sage_torch
+    from tpu_sage_torch.nn.model import GSSupervised
+    from tpu_sage_torch.sample.sampler import UniformNeighborSampler
+
+    assert sorted(tpu_sage_torch.__all__) == sorted(tpu_sage.__all__)
+    for name in tpu_sage.__all__:
+        obj = getattr(tpu_sage_torch, name)
+        assert obj.__module__.startswith("tpu_sage_torch.") if hasattr(obj, "__module__") \
+            else isinstance(obj, dict), name
+    assert tpu_sage_torch.GSSupervised is GSSupervised
+    assert tpu_sage_torch.UniformNeighborSampler is UniformNeighborSampler
+    with pytest.raises(AttributeError):
+        tpu_sage_torch.no_such_name  # noqa: B018
+
+
+def test_public_names_import_on_first_use():
+    """``import tpu_sage_torch`` alone imports no submodule (the CLI's
+    ``--help`` stays fast); the first access of a name imports its module."""
+    code = (
+        "import sys, tpu_sage_torch\n"
+        "before = sorted(m for m in sys.modules if m.startswith('tpu_sage_torch.'))\n"
+        "tpu_sage_torch.NodeProblem\n"
+        "print(before, 'tpu_sage_torch.data.problem' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] True"

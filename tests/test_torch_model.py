@@ -190,7 +190,7 @@ def test_forward_with_sampling_runs_the_tree():
     tmodel = GSSupervised(default_layer_specs(fanouts=FANOUTS, output_dims=DIMS), 3, feat_dim=D)
     tmodel.reset_parameters(torch.Generator().manual_seed(0))
     out = tmodel.forward_with_sampling(
-        torch.from_numpy(store.adj), torch.from_numpy(store.degrees),
+        store.to_device(train=False, device="cpu"),
         torch.arange(8, dtype=torch.int32), torch.from_numpy(store.feats), train=True,
         generator=torch.Generator().manual_seed(1))
     assert tuple(out.shape) == (8, 3) and torch.isfinite(out).all()

@@ -204,10 +204,35 @@ def test_config_fields_match_reference():
     assert ours == ref
 
 
-@pytest.mark.parametrize("kw", [dict(feature_int8=True), dict(fuse_first_layer=True)])
+@pytest.mark.parametrize("kw", [dict(fuse_first_layer=True)])
 def test_unported_options_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.check_ported(trainer.TrainConfig(**kw))
+
+
+def test_feature_int8_is_accepted_and_reaches_fit():
+    """Refused until ROADMAP Queue 1 item 10 was ported: ``check_ported``
+    accepts ``feature_int8``, ``build_model`` passes ``int8_summean`` to the
+    model, and ``fit`` trains on an int8 table (with CSR adjacency, bf16) on
+    an SBM store with a falling loss; ``device="cuda"`` without a card still
+    raises."""
+    from tpu_sage_torch.data.quantize import QuantizedFeats
+
+    config = trainer.TrainConfig(feature_int8=True, int8_summean=False,
+                                 compute_dtype="bfloat16", batch_size=64, epochs=3,
+                                 n_train_samples=(5, 3), n_val_samples=(5, 3),
+                                 output_dims=(16, 16))
+    trainer.check_ported(config)
+    assert trainer.build_model(config, 50, 3, 8).int8_summean is False
+    problem = sbm_problem(n_nodes=400, n_classes=4, feat_dim=16, seed=3)
+    _, state, hist = trainer.fit(problem, config, log=lambda d: None, device="cpu", csr=True)
+    assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cpu", csr=True,
+                                 quantize=True)
+    assert isinstance(graph.feats, QuantizedFeats) and state.step == 3 * (240 // 64)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            trainer.fit(problem, config, log=lambda d: None, device="cuda", csr=True)
 
 
 @pytest.mark.parametrize("kw", [dict(aggregator_class=a) for a in

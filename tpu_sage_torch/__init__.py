@@ -6,18 +6,46 @@ mirrors the reference module for module (``graph/``, ``data/``, ``sample/``,
 ``nn/``, ``train/``, ``kernels/``, ``ops.py``) so each counterpart is easy to
 find.
 
-Ported so far: supervised training with dense padded adjacency and every
-aggregator (``mean``, ``gcn``, ``max_pool``, ``mean_pool``, ``attention``,
+Ported so far: supervised training with dense padded or CSR adjacency,
+dense or int8 feature storage, and every aggregator (``mean``, ``gcn``, ``max_pool``, ``mean_pool``, ``attention``,
 ``lstm``) and prep (``identity``, ``linear``, ``node_embedding``) — the paths
 ``fit()`` runs — and the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
 exact full-graph inference (``nn/full_graph``), the exporter (``export``)
-and the CLI (``cli``). The hot functions (sampler hop, column select, row
-gather, gather + fanout mean, mean + projection) are hand-written CUDA
-kernels for ``sm_90a`` (``kernels/csrc``), built with ``nvcc`` on first use;
+and the CLI (``cli``). The hot functions (sampler hop, dense and CSR, column
+select, row gather, gather + fanout mean, dense and int8, mean + projection)
+are hand-written CUDA kernels for ``sm_90a`` (``kernels/csrc``), built with ``nvcc`` on first use;
 on CPU tensors each wrapper runs its plain PyTorch version instead.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (``--device cpu`` for the CLI and the exporter).
+
+The reference's public names (``tpu_sage/__init__.py``) are importable from
+here too; each is imported on first use, so ``python -m tpu_sage_torch.cli
+--help`` loads no more than it needs.
 """
 
+import importlib
+
 __version__ = "0.1.0"
+
+_PUBLIC = {
+    "DeviceGraph": "tpu_sage_torch.graph.graph_data",
+    "GraphStore": "tpu_sage_torch.graph.graph_data",
+    "build_padded_adjacency": "tpu_sage_torch.graph.graph_data",
+    "NodeProblem": "tpu_sage_torch.data.problem",
+    "UniformNeighborSampler": "tpu_sage_torch.sample.sampler",
+    "uniform_neighbor_sample": "tpu_sage_torch.sample.sampler",
+    "sample_tree": "tpu_sage_torch.sample.sampler",
+    "prep_lookup": "tpu_sage_torch.nn.preps",
+    "aggregator_lookup": "tpu_sage_torch.nn.aggregators",
+    "GSSupervised": "tpu_sage_torch.nn.model",
+    "LayerSpec": "tpu_sage_torch.nn.model",
+    "LRSchedule": "tpu_sage_torch.train.lr",
+}
+__all__ = list(_PUBLIC)
+
+
+def __getattr__(name):
+    if name in _PUBLIC:
+        return getattr(importlib.import_module(_PUBLIC[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -103,9 +103,12 @@ def parse_args(argv=None):
     ap.add_argument("--fuse-last", default=None, choices=["auto", "off", "all"],
                     help="deepest-level fused gather+summary (default auto)")
     ap.add_argument("--csr-adjacency", action="store_true",
-                    help="CSR adjacency on the device (not ported yet)")
+                    help="store the adjacency as CSR on the device (nnz ids "
+                         "instead of n*max_degree); exact validation keeps "
+                         "the full graph dense")
     ap.add_argument("--feature-int8", action="store_true",
-                    help="int8 features with per-column scales (not ported yet)")
+                    help="store node features int8 with per-column scales "
+                         "(halves the resident table and the gathered bytes)")
     ap.add_argument("--reorder", default=None, choices=["degree", "locality"],
                     help="node reordering before partitioning (not ported yet)")
     ap.add_argument("--unsupervised", action="store_true",
@@ -139,8 +142,6 @@ def _unported_flag(args):
             (args.halo_measure_steps is not None, "--halo-measure-steps", 14),
             (args.reorder is not None, "--reorder", 14),
             (args.unsupervised, "--unsupervised", 12),
-            (args.csr_adjacency, "--csr-adjacency", 11),
-            (args.feature_int8, "--feature-int8", 10),
             (args.fuse_first_layer, "--fuse-first-layer", 13)):
         if given:
             return flag, item
@@ -242,6 +243,8 @@ def main(argv=None):
         given["exact_val"] = True
     if args.save_best:
         given["save_best"] = True
+    if args.feature_int8:
+        given["feature_int8"] = True
     if args.config:
         # the preset is the base; flags PRESENT ON THE COMMAND LINE override
         # it (read from the raw argv, so a flag given at its default value
@@ -293,6 +296,7 @@ def _run_fit(args, problem, config, log):
         val_interval_batches=args.val_interval,
         checkpoint_every=args.checkpoint_every,
         device=args.device,
+        csr=args.csr_adjacency,
     )
     if args.checkpoint_path:
         path = None

@@ -22,7 +22,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_sage_torch.graph.graph_data import DeviceGraph, GraphStore
+from tpu_sage_torch.graph.graph_data import CSRDeviceGraph, DeviceGraph, GraphStore
 
 FOLD_CODES = {"train": 0, "val": 1, "test": 2}
 
@@ -48,7 +48,7 @@ class NodeProblem:
         self.task = store.task
         self.n_classes = store.n_classes
         self.folds: Dict[str, np.ndarray] = store.folds
-        self._device_graphs: Dict[tuple, DeviceGraph] = {}
+        self._device_graphs: Dict[tuple, DeviceGraph | CSRDeviceGraph] = {}
 
     @classmethod
     def from_h5(cls, problem_path: str) -> "NodeProblem":
@@ -88,18 +88,30 @@ class NodeProblem:
     def feats_dim(self) -> int:
         return self.store.feat_dim
 
+    @property
+    def loss_fn_name(self) -> str:
+        return self.task
+
+    @property
+    def metric_fn_name(self) -> str:
+        return self.task
+
     def device_graph(
         self, train: bool, dtype: torch.dtype = torch.float32,
-        device: str | torch.device = "cuda",
-    ) -> DeviceGraph:
+        device: str | torch.device = "cuda", csr: bool = False, quantize: bool = False,
+    ) -> DeviceGraph | CSRDeviceGraph:
         """Upload (once, cached) the train-edge or full-edge graph.
 
         ``dtype`` is the feature dtype on the device (``torch.bfloat16``
-        halves the dominant gather traffic)."""
-        key = (train, dtype, str(torch.device(device)))
+        halves the dominant gather traffic). ``csr`` uploads CSR adjacency
+        (``nnz`` ids instead of ``n·max_degree``); ``quantize`` stores the
+        features int8 with per-column scales, ``dtype`` then being the
+        compute dtype (``data/quantize.py``)."""
+        key = (train, dtype, str(torch.device(device)), csr, quantize)
         if key not in self._device_graphs:
-            self._device_graphs[key] = self.store.to_device(
-                train=train, dtype=dtype, device=device
+            to_dev = self.store.to_device_csr if csr else self.store.to_device
+            self._device_graphs[key] = to_dev(
+                train=train, dtype=dtype, device=device, quantize=quantize
             )
         return self._device_graphs[key]
 

@@ -8,7 +8,9 @@ Padding idiom (same as the reference): rows with ``degree < max_degree`` are
 padded with the node's own id (self-loop), and ``degree == 0`` rows are
 all-self. The sampler only draws column indices in ``[0, max(degree, 1))``,
 so padding values are never selected except for isolated nodes, which
-self-loop.
+self-loop. ``CSRDeviceGraph`` is the memory-lean storage: ``nnz`` neighbor
+ids instead of ``n·max_degree``. Either graph's ``feats`` may be a
+``data/quantize.py::QuantizedFeats`` (int8 rows, per-column scales).
 """
 
 from __future__ import annotations
@@ -19,6 +21,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from tpu_sage_torch.data.quantize import quantize_feats
+from tpu_sage_torch.sample.csr import csr_from_padded, pad_indices_for_window
+
 
 @dataclasses.dataclass
 class DeviceGraph:
@@ -26,12 +31,34 @@ class DeviceGraph:
 
     adj: torch.Tensor      # (n_nodes, max_degree) int32, padded with self id
     degrees: torch.Tensor  # (n_nodes,) int32 true degree (0 allowed)
-    feats: torch.Tensor    # (n_nodes, feat_dim) float32 or bfloat16
+    feats: torch.Tensor    # (n_nodes, feat_dim) float32 or bfloat16, or a
+    # QuantizedFeats, or raw int8 with feat_scale set
     targets: torch.Tensor  # (n_nodes,) int32 or (n_nodes, n_targets) float
+    feat_scale: Optional[torch.Tensor] = None  # (feat_dim,) per-column scales
+    # of a raw int8 feats (the partitioned layout); None on the single device
 
     @property
     def device(self) -> torch.device:
         return self.adj.device
+
+
+@dataclasses.dataclass
+class CSRDeviceGraph:
+    """CSR variant of ``DeviceGraph``, with the same non-adjacency fields;
+    the sampler dispatches on the presence of ``indptr``
+    (``sample/csr.py::graph_sample_tree``)."""
+
+    indptr: torch.Tensor   # (n_nodes + 1,) int32
+    indices: torch.Tensor  # (nnz [+ window padding],) int32
+    degrees: torch.Tensor  # (n_nodes,) int32
+    feats: torch.Tensor    # as DeviceGraph.feats
+    targets: torch.Tensor
+    window: int = 0  # >= the true max degree, indices padded for the window
+    # hop (to_device_csr sets both); 0 selects the element hop
+
+    @property
+    def device(self) -> torch.device:
+        return self.degrees.device
 
 
 def build_padded_adjacency(
@@ -114,26 +141,58 @@ class GraphStore:
 
     def to_device(
         self, train: bool, dtype: torch.dtype = torch.float32,
-        device: str | torch.device = "cuda",
+        device: str | torch.device = "cuda", quantize: bool = False,
     ) -> DeviceGraph:
         device = torch.device(device)
         adj = self.train_adj if train else self.adj
         deg = self.train_degrees if train else self.degrees
-        tdtype = torch.int32 if self.task == "classification" else dtype
         return DeviceGraph(
-            adj=torch.as_tensor(adj, dtype=torch.int32).to(device).contiguous(),
-            degrees=torch.as_tensor(deg, dtype=torch.int32).to(device).contiguous(),
-            feats=self._device_feats(dtype, device),
-            targets=torch.as_tensor(self.targets).to(device=device, dtype=tdtype),
+            adj=_int32(adj, device),
+            degrees=_int32(deg, device),
+            feats=self._device_feats(dtype, device, quantize),
+            targets=self._device_targets(dtype, device),
         )
 
-    def _device_feats(self, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-        """Feature upload, cached per ``(dtype, device)``: the train-edge and
-        full-edge graphs differ only in adjacency and share one table."""
+    def to_device_csr(
+        self, train: bool, dtype: torch.dtype = torch.float32,
+        device: str | torch.device = "cuda", quantize: bool = False,
+    ) -> CSRDeviceGraph:
+        """CSR upload: ``nnz`` ids on the device instead of ``n·max_degree``,
+        padded for the window hop (window = the true max degree)."""
+        device = torch.device(device)
+        adj = self.train_adj if train else self.adj
+        deg = self.train_degrees if train else self.degrees
+        indptr, indices = csr_from_padded(adj, deg)
+        window = max(1, int(deg.max())) if len(deg) else 1
+        return CSRDeviceGraph(
+            indptr=_int32(indptr, device),
+            indices=_int32(pad_indices_for_window(indices, window), device),
+            degrees=_int32(deg, device),
+            feats=self._device_feats(dtype, device, quantize),
+            targets=self._device_targets(dtype, device),
+            window=window,
+        )
+
+    def _device_targets(self, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+        tdtype = torch.int32 if self.task == "classification" else dtype
+        return torch.as_tensor(self.targets).to(device=device, dtype=tdtype)
+
+    def _device_feats(self, dtype: torch.dtype, device: torch.device, quantize: bool = False):
+        """Feature upload, dense in ``dtype`` or int8 with per-column scales
+        (``quantize``; ``dtype`` is then the compute dtype), cached per
+        ``(dtype, device, quantize)``: the train-edge and full-edge graphs
+        differ only in adjacency and share one table."""
         cache = self.__dict__.setdefault("_device_feats_cache", {})
-        key = (dtype, str(device))
+        key = (dtype, str(device), quantize)
         if key not in cache:
-            cache[key] = torch.from_numpy(
-                np.ascontiguousarray(self.feats, dtype=np.float32)
-            ).to(device=device, dtype=dtype).contiguous()
+            if quantize:
+                cache[key] = quantize_feats(self.feats, out_dtype=dtype, device=device)
+            else:
+                cache[key] = torch.from_numpy(
+                    np.ascontiguousarray(self.feats, dtype=np.float32)
+                ).to(device=device, dtype=dtype).contiguous()
         return cache[key]
+
+
+def _int32(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(a, dtype=torch.int32).to(device).contiguous()

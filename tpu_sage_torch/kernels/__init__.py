@@ -5,15 +5,20 @@ port module            replaces (JAX package)                              CUDA 
 =====================  ==================================================  ====================
 ``select``             ``kernels/select.py::select_columns_pallas``        ``csrc/select.cu``
 ``sample_hop``         ``kernels/select.py::select_columns_pallas`` with   ``csrc/select.cu``
-                       the hop's gathers (``sample/sampler.py:55-60``)
+                       the hop's gathers (``sample/sampler.py:55-60``);
+                       the CSR hop (``sample/csr.py``)
 ``gather``             ``kernels/gather.py::gather_rows``                  ``csrc/gather.cu``
 ``gather_blockspec``   ``kernels/gather.py::gather_rows_blockspec``        ``csrc/gather.cu``
 ``gather_mean``        ``kernels/gather_mean.py::gather_fanout_mean``      ``csrc/gather_mean.cu``
+                       (and, for int8 tables, ``data/quantize.py::
+                       QuantizedFeats.fanout_mean``)
 ``mean_project``       ``kernels/mean_project.py::mean_project``           ``csrc/mean_project.cu``
 =====================  ==================================================  ====================
 
 Each module holds its kernel's wrapper, the plain PyTorch version beside it
-(``*_reference``) and a launch counter ``LAUNCHES``. A wrapper runs the plain
+(``*_reference``) and a launch counter ``LAUNCHES``; ``gather_mean`` and
+``sample_hop`` hold a second entry point each, the int8 fanout mean and the
+CSR hop, with counters of their own (``COUNTERS``). A wrapper runs the plain
 version only for tensors on the CPU; for a CUDA tensor it launches its kernel
 or raises. The kernels build on first use (``_build``). ``gather_blockspec``
 is the measurement foil of ``gather``: nothing on the main path launches it.
@@ -33,14 +38,18 @@ KERNEL_MODULES = {
     "gather_rows_blockspec": gather_blockspec,
     "gather_fanout_mean": gather_mean,
     "mean_project": mean_project,
+    "gather_fanout_mean_int8": gather_mean,
+    "sample_hop_csr": sample_hop,
 }
+COUNTERS = {name: "LAUNCHES" for name in KERNEL_MODULES}  # each kernel's counter
+COUNTERS.update(gather_fanout_mean_int8="INT8_LAUNCHES", sample_hop_csr="CSR_LAUNCHES")
 
 
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last ``reset_launch_counts``."""
-    return {name: mod.LAUNCHES for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, COUNTERS[name]) for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.LAUNCHES = 0
+    for name, mod in KERNEL_MODULES.items():
+        setattr(mod, COUNTERS[name], 0)

@@ -31,6 +31,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -110,8 +111,9 @@ gather_fanout_mean_kernel(const T* __restrict__ table, const int32_t* __restrict
 #pragma unroll 1
     for (int jb = 0; jb < fanout; jb += 32) {
       const int64_t my_id = jb == 0 ? first_ids : load_id(jb + lane);
+      const int jend = min(fanout, jb + 32);  // the ids this block of lanes holds
 #pragma unroll 1
-      for (int j0 = jb; j0 < min(fanout, jb + 32); j0 += kJ) {
+      for (int j0 = jb; j0 < jend; j0 += kJ) {
         W v[kJ][kK];
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
@@ -120,12 +122,12 @@ gather_fanout_mean_kernel(const T* __restrict__ table, const int32_t* __restrict
 #pragma unroll
           for (int k = 0; k < kK; ++k) {
             const int wi = w0 + k * 32 + lane;
-            if (j0 + jj < fanout && wi < words) ld_nc(v[jj][k], row + wi);
+            if (j0 + jj < jend && wi < words) ld_nc(v[jj][k], row + wi);
           }
         }
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
-          if (j0 + jj < fanout) {
+          if (j0 + jj < jend) {
 #pragma unroll
             for (int k = 0; k < kK; ++k)
 #pragma unroll
@@ -188,4 +190,230 @@ extern "C" int tsg_gather_fanout_mean(const void* table, const void* ids, void* 
     }
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// int8 rows: tsg_gather_fanout_mean_int8.
+//
+// Replaces tpu_sage/data/quantize.py::QuantizedFeats.fanout_mean (XLA in the
+// JAX package, no Pallas form): the deepest level's gather + fanout mean
+// over an int8 table with per-column scales. Two modes:
+//
+//   summean = 1 (JAX's int8_summean=True, the default):
+//     s[r, j]   = sum_f q[ids[r*F + f], j]                in int32 (exact)
+//     out[r, j] = round_dt(fl32(float(s) * c[j]))
+//   with c[j] = fl32(scale[j] * fl32(1/F)) (fl32(1/F) = __frcp_rn(F)): the
+//   form the reference takes under jit, where XLA rewrites scale / F as a
+//   product with the reciprocal;
+//   summean = 0 (int8_summean=False, dequantize then mean), in the form the
+//   reference's jnp.mean of the dequantized rows takes under jit on the CPU:
+//     bf16: x[f, j] = round_bf16(fl32(float(q) * scale_bf16[j])), summed in
+//           f32 in order f = 0, 1, ...;
+//     f32:  acc = fma(float(q), scale[j], acc) in order f = 0, 1, ... (XLA
+//           contracts the dequantizing multiply into the sum);
+//     out[r, j] = round_dt(fl32(acc * fl32(1/F)))
+//   with scale_dt = round_dt(scale). The kernel reads the f32 scales and
+//   derives both factors itself, so a step launches nothing else for them.
+//
+// out is in the compute dtype (bf16 or f32). Bitwise the plain version
+// (kernels/gather_mean.py::gather_fanout_mean_int8_reference) in both modes.
+//
+// Bound on the H100: bytes. At the main path's deepest level (12,800 roots,
+// F = 10, 602 columns) the rows are 128,000 x 602 B = 77.1 MB (about 80 MB
+// in 32-byte sectors, fewer where ids repeat), the ids 0.5 MB and the bf16
+// means 15.4 MB: about 96 MB, 0.029 ms at 3.35 TB/s, against 0.044 ms for
+// the bf16 table's rows and f32 means above. The design is the dense
+// kernel's: one warp per root, ids shuffled from the first F lanes, kJ = 5
+// rows' loads issued before any is added. A row starts at id * d bytes, so
+// a 602-byte row is only 2-byte aligned: the word is the widest of 16, 8,
+// 4, 2 or 1 bytes that divides d and the table's address (a 602-wide row
+// moves as 301 two-byte words, 10 per lane, one pass); the sum of a word's
+// bytes runs in int32 registers (exact for F < 2^24).
+
+namespace {
+
+template <int V> struct Int8WordsPerLane {
+  static constexpr int value = V >= 16 ? 1 : (V == 8 ? 2 : (V == 4 ? 5 : 10));
+};
+
+template <int BYTES> struct Int8Word;
+template <> struct Int8Word<1> { using T = uint8_t; };
+template <> struct Int8Word<2> { using T = uint16_t; };
+template <> struct Int8Word<4> { using T = uint32_t; };
+template <> struct Int8Word<8> { using T = uint2; };
+template <> struct Int8Word<16> { using T = uint4; };
+
+__device__ __forceinline__ void ld_nc(uint8_t& v, const void* p) {
+  v = __ldg(reinterpret_cast<const unsigned char*>(p));
+}
+__device__ __forceinline__ uint32_t part(uint8_t v, int) { return v; }
+
+// byte e of a word, sign-extended
+template <typename W>
+__device__ __forceinline__ int byte_of(const W& v, int e) {
+  return (int)(int8_t)(uint8_t)(part(v, e >> 2) >> (8 * (e & 3)));
+}
+
+__device__ __forceinline__ float round_out(float x, float*) { return x; }
+__device__ __forceinline__ __nv_bfloat16 round_out(float x, __nv_bfloat16*) {
+  return __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// two adjacent outputs in one store (4 bytes of bf16, 8 of f32)
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+template <int V, int SUMMEAN, typename OutT>
+__global__ void __launch_bounds__(kWarps * 32)
+gather_fanout_mean_int8_kernel(const int8_t* __restrict__ table, const int32_t* __restrict__ ids,
+                               const float* __restrict__ scale, OutT* __restrict__ out,
+                               int64_t n_table, int64_t n_roots, int d, int fanout) {
+  using W = typename Int8Word<V>::T;
+  using Acc = typename std::conditional<SUMMEAN, int, float>::type;
+  constexpr int kK = Int8WordsPerLane<V>::value;
+  const int lane = threadIdx.x & 31;
+  const int64_t root = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (root >= n_roots) return;
+  const int32_t* root_ids = ids + root * fanout;
+  const int words = d / V;
+  OutT* dst = out + root * d;
+
+  auto load_id = [&](int j) -> int64_t {
+    if (j >= fanout) return 0;
+    int64_t id = root_ids[j];
+    if (id < 0) id += n_table;
+    return id < 0 ? 0 : (id >= n_table ? n_table - 1 : id);
+  };
+  const int64_t first_ids = load_id(lane);
+
+#pragma unroll 1
+  for (int w0 = 0; w0 < words; w0 += 32 * kK) {
+    Acc acc[kK][V] = {};
+    float scale_dt[kK][V];  // summean = 0: each column's scale in the compute dtype
+    if constexpr (!SUMMEAN) {
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {
+        const int wi = w0 + k * 32 + lane;
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          scale_dt[k][e] =
+              wi < words ? widen(round_out(scale[wi * V + e], (OutT*)nullptr)) : 0.f;
+      }
+    }
+#pragma unroll 1
+    for (int jb = 0; jb < fanout; jb += 32) {
+      const int64_t my_id = jb == 0 ? first_ids : load_id(jb + lane);
+      const int jend = min(fanout, jb + 32);  // the ids this block of lanes holds
+#pragma unroll 1
+      for (int j0 = jb; j0 < jend; j0 += kJ) {
+        W v[kJ][kK];
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          const int64_t id = __shfl_sync(0xffffffffu, my_id, j0 - jb + jj);
+          const W* row = reinterpret_cast<const W*>(table + id * d);
+#pragma unroll
+          for (int k = 0; k < kK; ++k) {
+            const int wi = w0 + k * 32 + lane;
+            if (j0 + jj < jend && wi < words) ld_nc(v[jj][k], row + wi);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          if (j0 + jj < jend) {
+#pragma unroll
+            for (int k = 0; k < kK; ++k)
+#pragma unroll
+              for (int e = 0; e < V; ++e) {
+                const int qv = byte_of(v[jj][k], e);
+                if constexpr (SUMMEAN) {
+                  acc[k][e] += qv;
+                } else if constexpr (std::is_same<OutT, float>::value) {
+                  acc[k][e] = __fmaf_rn((float)qv, scale_dt[k][e], acc[k][e]);
+                } else {
+                  acc[k][e] = __fadd_rn(acc[k][e], widen(round_out(
+                      __fmul_rn((float)qv, scale_dt[k][e]), (OutT*)nullptr)));
+                }
+              }
+          }
+        }
+      }
+    }
+    const float recip = __frcp_rn((float)fanout);
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int wi = w0 + k * 32 + lane;
+      if (wi < words) {
+        float m[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          if constexpr (SUMMEAN) {
+            m[e] = __fmul_rn((float)acc[k][e], __fmul_rn(scale[wi * V + e], recip));
+          } else {
+            m[e] = __fmul_rn(acc[k][e], recip);
+          }
+        }
+        if constexpr (V == 1) {
+          dst[wi] = round_out(m[0], (OutT*)nullptr);
+        } else {  // V even: a word's outputs start at an even element
+#pragma unroll
+          for (int e = 0; e < V; e += 2) store_pair(dst + wi * V + e, m[e], m[e + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int V, int SUMMEAN, typename OutT>
+void launch_int8(const void* table, const void* ids, const void* scale, void* out,
+                 int64_t n_table, int64_t n_roots, int d, int fanout, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n_roots + kWarps - 1) / kWarps);
+  gather_fanout_mean_int8_kernel<V, SUMMEAN, OutT><<<blocks, kWarps * 32, 0, s>>>(
+      (const int8_t*)table, (const int32_t*)ids, (const float*)scale, (OutT*)out, n_table,
+      n_roots, d, fanout);
+}
+
+template <int V>
+int launch_int8_mode(const void* table, const void* ids, const void* scale, void* out,
+                     int64_t n_table, int64_t n_roots, int d, int fanout, int out_bf16,
+                     int summean, cudaStream_t s) {
+  if (summean && out_bf16)
+    launch_int8<V, 1, __nv_bfloat16>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+  else if (summean)
+    launch_int8<V, 1, float>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+  else if (out_bf16)
+    launch_int8<V, 0, __nv_bfloat16>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+  else
+    launch_int8<V, 0, float>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// scale: (d,) f32 per-column scales. vec: bytes per word, the widest of 16,
+// 8, 4, 2, 1 that divides d and the table's base address; out (n_roots, d)
+// bf16 (out_bf16 = 1) or f32, its base 8-byte aligned.
+extern "C" int tsg_gather_fanout_mean_int8(const void* table, const void* ids,
+                                           const void* scale, void* out, long long n_table,
+                                           long long n_roots, int d, int fanout, int out_bf16,
+                                           int summean, int vec, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (vec) {
+    case 16: return launch_int8_mode<16>(table, ids, scale, out, n_table, n_roots, d, fanout,
+                                         out_bf16, summean, s);
+    case 8: return launch_int8_mode<8>(table, ids, scale, out, n_table, n_roots, d, fanout,
+                                       out_bf16, summean, s);
+    case 4: return launch_int8_mode<4>(table, ids, scale, out, n_table, n_roots, d, fanout,
+                                       out_bf16, summean, s);
+    case 2: return launch_int8_mode<2>(table, ids, scale, out, n_table, n_roots, d, fanout,
+                                       out_bf16, summean, s);
+    case 1: return launch_int8_mode<1>(table, ids, scale, out, n_table, n_roots, d, fanout,
+                                       out_bf16, summean, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

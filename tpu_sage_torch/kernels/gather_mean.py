@@ -6,24 +6,34 @@ block. On a CUDA tensor the wrapper launches ``csrc/gather_mean.cu``; on a CPU
 tensor it runs ``gather_fanout_mean_reference``, which sums the fanout axis
 in the kernel's order (j = 0, 1, ...) and divides by ``F``. Out-of-range ids
 take the ``plain`` form (``gather.plain_ids``).
+
+``gather_fanout_mean_int8`` is the same pass over an int8 table with
+per-column scales (``tpu_sage/data/quantize.py::QuantizedFeats.fanout_mean``,
+XLA in the JAX package): the second entry point of ``csrc/gather_mean.cu``,
+with its own counter ``INT8_LAUNCHES`` and its plain version
+``gather_fanout_mean_int8_reference``.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from tpu_sage_torch.kernels._build import launch, library, require
 from tpu_sage_torch.kernels.gather import plain_ids
 
 LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
+INT8_LAUNCHES = 0  # the same, of the int8 entry point
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tsg_gather_fanout_mean": (_P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _P),
+    "tsg_gather_fanout_mean_int8": (_P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
 }
 
 
@@ -79,4 +89,90 @@ def gather_fanout_mean(table: torch.Tensor, ids: torch.Tensor, fanout: int) -> t
            d, fanout, int(table.dtype == torch.bfloat16), word_elements(table),
            device=table.device)
     LAUNCHES += 1
+    return out
+
+
+def int8_word_bytes(q: torch.Tensor) -> int:
+    """Bytes per word the int8 kernel reads a row in: the widest of 16, 8, 4,
+    2 and 1 that divides the row width and the table's address. A 602-wide
+    row moves as 301 two-byte words."""
+    d = q.shape[1]
+    for v in (16, 8, 4, 2):
+        if d % v == 0 and q.data_ptr() % v == 0:
+            return v
+    return 1
+
+
+def reciprocal(fanout: int) -> float:
+    """``fl32(1/F)``, correctly rounded (exact as a Python float). The
+    reference's ``scale / F`` is ``scale · fl32(1/F)`` under jit, where XLA
+    rewrites the division; eagerly it divides, and the two differ in the
+    last bit of about one f32 mean in six."""
+    return float(np.float32(1.0) / np.float32(fanout))
+
+
+def gather_fanout_mean_int8_reference(q: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
+                                      fanout: int, out_dtype: torch.dtype,
+                                      summean: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_fanout_mean_int8``.
+
+    ``summean=False`` takes the form the reference's ``jnp.mean`` of the
+    dequantized rows has under jit on the CPU: bf16 rows are dequantized
+    (one rounding) and summed in f32; f32 rows are summed as
+    ``fma(q, scale, acc)``, since XLA contracts the dequantizing multiply
+    into the sum (done here in f64, where ``acc + q·scale`` is exact: every
+    term is a multiple of the scale's last bit and spans under 40 bits);
+    then both multiply by ``fl32(1/F)``."""
+    rows = q[plain_ids(ids, q.shape[0]).long()].view(-1, fanout, q.shape[1])
+    if summean:
+        s = rows.to(torch.int32).sum(1)
+        return (s.float() * (scale * reciprocal(fanout))).to(out_dtype)
+    acc = torch.zeros((rows.shape[0], q.shape[1]), dtype=torch.float32, device=q.device)
+    if out_dtype == torch.float32:
+        scale64 = scale.double()
+        for j in range(fanout):
+            acc = (acc.double() + rows[:, j].double() * scale64).float()
+    else:
+        deq = (rows.to(out_dtype) * scale.to(out_dtype)).float()
+        for j in range(fanout):
+            acc = acc + deq[:, j]
+    return (acc * reciprocal(fanout)).to(out_dtype)
+
+
+def gather_fanout_mean_int8(q: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
+                            fanout: int, out_dtype: torch.dtype,
+                            summean: bool = True) -> torch.Tensor:
+    """``q (n, d)`` int8, ``scale (d,)`` f32, ``ids (R·fanout,)`` int32 →
+    ``(R, d)`` in ``out_dtype`` (bf16 or f32).
+
+    ``summean``: the int32 sum of the raw rows times ``scale / F`` (one
+    dequantization per mean); otherwise each row dequantized to
+    ``out_dtype``, summed in f32 and multiplied by ``1/F`` (the reference's
+    ``int8_summean=False``; the plain version says how)."""
+    global INT8_LAUNCHES
+    if fanout < 1 or ids.shape[0] % fanout:
+        raise ValueError(f"ids length {ids.shape[0]} is not a multiple of fanout {fanout}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if q.device.type == "cpu":
+        return gather_fanout_mean_int8_reference(q, scale, ids, fanout, out_dtype, summean)
+    if q.device.type != "cuda":
+        raise ValueError(f"gather_fanout_mean_int8 runs on cuda or cpu, got {q.device}")
+    require(q, "q", device=q.device, dtypes=(torch.int8,), ndim=2)
+    require(scale, "scale", device=q.device, dtypes=(torch.float32,), ndim=1)
+    require(ids, "ids", device=q.device, dtypes=(torch.int32,), ndim=1)
+    n, d = q.shape
+    if scale.shape[0] != d:
+        raise ValueError(f"scale has {scale.shape[0]} columns, the table {d}")
+    r = ids.shape[0] // fanout
+    out = torch.empty((r, d), dtype=out_dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if n == 0:
+        raise ValueError("cannot gather from an empty table")
+    lib = library("gather_mean", _SIGNATURES)
+    launch(lib.tsg_gather_fanout_mean_int8, q.data_ptr(), ids.data_ptr(), scale.data_ptr(),
+           out.data_ptr(), n, r, d, fanout, int(out_dtype == torch.bfloat16), int(summean),
+           int8_word_bytes(q), device=q.device)
+    INT8_LAUNCHES += 1
     return out

@@ -21,9 +21,10 @@ LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_count
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
-_SIGNATURES = {  # both entry points of csrc/select.cu (sample_hop uses the second)
+_SIGNATURES = {  # every entry point of csrc/select.cu (sample_hop uses the last two)
     "tsg_select_columns": (_P, _P, _P, _LL, ctypes.c_int, _LL, ctypes.c_int, _P),
     "tsg_sample_hop": (_P, _P, _P, _P, _P, _LL, ctypes.c_int, _LL, ctypes.c_int, _P),
+    "tsg_sample_hop_csr": (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
 }
 
 

@@ -35,6 +35,9 @@ Where the port differs in form from the JAX package, the values agree:
 - The ``linear`` and ``node_embedding`` preps apply to the whole table first
   (the projection; the table concatenated after the features, which
   promotes a bf16 table to f32).
+- An int8 table is dequantized whole first, as JAX does: a
+  ``QuantizedFeats`` to its compute dtype; raw int8 feats with
+  ``graph.feat_scale`` (the partitioned layout) to the scales' dtype.
 
 The partitioned variant (``embed_all_nodes_partitioned``) is ROADMAP Queue 1
 item 14.
@@ -47,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from tpu_sage_torch.data.quantize import QuantizedFeats
 from tpu_sage_torch.graph.graph_data import DeviceGraph
 from tpu_sage_torch.nn.aggregators import GCNAggregator
 from tpu_sage_torch.nn.model import GSSupervised, _l2_normalize
@@ -169,13 +173,24 @@ def _prep_table(model: GSSupervised, h: torch.Tensor) -> torch.Tensor:
     return h
 
 
+def _dense_feats(graph: DeviceGraph) -> torch.Tensor:
+    """The feature table in a float dtype: an int8 table dequantized (the
+    layer-wise products need dense rows)."""
+    h = graph.feats
+    if isinstance(h, QuantizedFeats):  # not hasattr: torch.Tensor has a dequantize too
+        return h.dequantize()
+    if graph.feat_scale is not None and not h.is_floating_point():
+        return h.to(graph.feat_scale.dtype) * graph.feat_scale
+    return h
+
+
 def embed_all_nodes(model: GSSupervised, graph: DeviceGraph, chunk: int = 4096,
                     with_head: bool = False) -> torch.Tensor:
     """Exact embeddings ``(n, D)`` (or logits with ``with_head``) for all
     nodes of ``graph``, in f32, on the graph's device."""
     _check_exact_supported(model)
     with torch.inference_mode():
-        h = _prep_table(model, graph.feats)
+        h = _prep_table(model, _dense_feats(graph))
         for layer_idx in range(len(model.layer_specs)):
             h = _layer_full(model, layer_idx, h, graph, chunk)
         if model.normalize:

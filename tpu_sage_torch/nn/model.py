@@ -15,6 +15,12 @@ others the level is gathered whole (one ``gather_rows``) and summarised at
 once (``_deepest_summary``); the JAX package gathers and summarises it in
 root-aligned chunks, which gives the same values. ``lstm`` is fused only
 under ``fuse_last="all"``.
+
+The feature table may be int8 (``data/quantize.py::QuantizedFeats``): every
+level's rows then arrive dequantized in the compute dtype through
+``row_gather``, and the fused fanout mean is the int8 kernel's
+(``int8_summean``: the int32 sum times ``scale / F``, else the mean of the
+dequantized rows).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from tpu_sage_torch.nn.aggregators import aggregator_lookup
 from tpu_sage_torch.nn.dense import Dense
 from tpu_sage_torch.nn.preps import prep_lookup
 from tpu_sage_torch.ops import row_gather, row_gather_fanout_mean
-from tpu_sage_torch.sample.sampler import sample_tree
+from tpu_sage_torch.sample.csr import graph_sample_tree
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-24) -> torch.Tensor:
@@ -101,6 +107,7 @@ class GSSupervised(torch.nn.Module):
         agg_hidden_dim: int = 512,
         dtype: Optional[torch.dtype] = None,
         fuse_last: str = "auto",
+        int8_summean: bool = True,
     ):
         super().__init__()
         if aggregator_class not in aggregator_lookup:
@@ -114,6 +121,7 @@ class GSSupervised(torch.nn.Module):
         self.prep_class = prep_class
         self.normalize = normalize
         self.fuse_last = fuse_last
+        self.int8_summean = int8_summean
         self.prep = prep_lookup[prep_class](feat_dim, n_nodes=n_nodes,
                                             embedding_dim=embedding_dim)
         agg_cls = aggregator_lookup[aggregator_class]
@@ -156,8 +164,10 @@ class GSSupervised(torch.nn.Module):
         fanout = levels[-1].shape[0] // levels[-2].shape[0]
         if self.aggregator_class in ("mean", "gcn"):
             # f32 means, rounded to the table's dtype as the reference's
-            # jnp.mean of the gathered rows returns it
-            summary = row_gather_fanout_mean(feats, levels[-1], fanout).to(feats.dtype)
+            # jnp.mean of the gathered rows returns it (an int8 table's
+            # kernel returns its compute dtype already)
+            summary = row_gather_fanout_mean(feats, levels[-1], fanout,
+                                             int8_summean=self.int8_summean).to(feats.dtype)
         else:
             summary = self._deepest_summary(levels, gathered[-1], feats, fanout)
         gathered.append(summary)
@@ -215,14 +225,14 @@ class GSSupervised(torch.nn.Module):
 
     def forward_with_sampling(
         self,
-        graph_adj: torch.Tensor,
-        graph_degrees: torch.Tensor,
+        graph,
         ids: torch.Tensor,
         feats: Optional[torch.Tensor],
         train: bool,
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
-        """Sample the tree then run the network."""
-        levels = sample_tree(graph_adj, graph_degrees, ids, self.fanouts(train),
-                             generator=generator)
+        """Sample the tree from ``graph`` (a ``DeviceGraph`` or a
+        ``CSRDeviceGraph``; ``sample/csr.py::graph_sample_tree``), then run
+        the network."""
+        levels = graph_sample_tree(graph, ids, self.fanouts(train), generator=generator)
         return self(levels, feats)

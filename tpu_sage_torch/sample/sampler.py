@@ -108,3 +108,18 @@ def sample_tree_packed(
         cols = hop_columns(u, rows[:, -1].clamp_min(1))
         levels.append(select_columns(rows[:, :-1], cols).reshape(-1))
     return levels
+
+
+class UniformNeighborSampler:
+    """The reference's sampler object: binds the adjacency once; each call
+    draws from ``generator`` (or takes the uniforms ``u``)."""
+
+    def __init__(self, adj: torch.Tensor, degrees: torch.Tensor):
+        self.adj = adj
+        self.degrees = degrees
+
+    def __call__(self, ids: torch.Tensor, n_samples: int, *,
+                 generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return uniform_neighbor_sample(self.adj, self.degrees, ids, n_samples,
+                                       generator=generator, u=u)

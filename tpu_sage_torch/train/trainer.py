@@ -19,28 +19,29 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from tpu_sage_torch.graph.graph_data import DeviceGraph
+from tpu_sage_torch.graph.graph_data import CSRDeviceGraph, DeviceGraph
 from tpu_sage_torch.nn.full_graph import embed_all_nodes, exact_supported
 from tpu_sage_torch.nn.model import GSSupervised, default_layer_specs
-from tpu_sage_torch.sample.sampler import sample_tree
+from tpu_sage_torch.sample.csr import graph_sample_tree
 from tpu_sage_torch.train.checkpoint import BestTracker, maybe_checkpoint, resume_state
 from tpu_sage_torch.train.losses import loss_lookup
 from tpu_sage_torch.train.lr import LRSchedule
 from tpu_sage_torch.train.metrics import metric_lookup
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Graph = Union[DeviceGraph, CSRDeviceGraph]  # what the step samples from
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Flat, json-loadable run config with the reference's field names, so the
-    presets in ``configs/`` load unchanged. Fields of paths not ported yet
-    are accepted here and refused by ``check_ported``; the gather-lowering
+    presets in ``configs/`` load unchanged. ``fuse_first_layer``, not
+    ported yet, is accepted here and refused by ``check_ported``; the gather-lowering
     and partitioned-path knobs (``gather_form``, ``gather_form_deep``,
     ``gather_chunks``, ``halo*``, ``csr_owner_select``) change no value on the
     single-device path and are ignored."""
@@ -115,13 +116,8 @@ class TrainConfig:
 def check_ported(config: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for a config that asks for a path the port
     does not have yet, naming its ROADMAP item."""
-    missing = [
-        (config.feature_int8, "feature_int8", "Queue 1 item 10"),
-        (config.fuse_first_layer, "fuse_first_layer", "Queue 1 item 13"),
-    ]
-    for asked, what, item in missing:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+    if config.fuse_first_layer:
+        raise NotImplementedError("fuse_first_layer is not ported yet (ROADMAP Queue 1 item 13)")
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype: {config.compute_dtype!r}")
     if config.optimizer not in ("adam", "sgd"):
@@ -172,6 +168,7 @@ def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
         agg_hidden_dim=config.agg_hidden_dim,
         dtype=None if config.compute_dtype == "float32" else COMPUTE_DTYPES[config.compute_dtype],
         fuse_last=config.fuse_last,
+        int8_summean=config.int8_summean,
     )
 
 
@@ -234,7 +231,7 @@ class Trainer:
         self.steps_per_epoch = steps_per_epoch
         self._lr_fn = make_schedule(config, steps_per_epoch)
 
-    def init_state(self, graph: DeviceGraph) -> TrainState:
+    def init_state(self, graph: Graph) -> TrainState:
         """Draw fresh parameters, move the model to the graph's device and
         build the optimizer and the sampling generator."""
         self.model.reset_parameters(torch.Generator().manual_seed(self.config.seed))
@@ -246,7 +243,7 @@ class Trainer:
     def train_step(
         self,
         state: TrainState,
-        graph: DeviceGraph,
+        graph: Graph,
         ids: torch.Tensor,
         targets: torch.Tensor,
         levels: Optional[List[torch.Tensor]] = None,
@@ -257,8 +254,8 @@ class Trainer:
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         if levels is None:
-            levels = sample_tree(graph.adj, graph.degrees, ids, self.model.fanouts(train=True),
-                                 generator=state.generator)
+            levels = graph_sample_tree(graph, ids, self.model.fanouts(train=True),
+                                       generator=state.generator)
         state.optimizer.zero_grad(set_to_none=True)
         logits = self.model(levels, graph.feats)
         loss = self.loss_fn(logits, targets)
@@ -271,7 +268,7 @@ class Trainer:
     def train_epoch(
         self,
         state: TrainState,
-        graph: DeviceGraph,
+        graph: Graph,
         fold_ids: torch.Tensor,      # (n_fold,) int32 on the device
         fold_targets: torch.Tensor,  # (n_fold, ...) aligned with fold_ids
     ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -297,7 +294,7 @@ class Trainer:
     @torch.no_grad()
     def eval_fold(
         self,
-        graph: DeviceGraph,
+        graph: Graph,
         generator: torch.Generator,
         ids_padded: torch.Tensor,      # (n_batches, B) int32
         targets_padded: torch.Tensor,  # (n_batches, B, ...)
@@ -309,7 +306,7 @@ class Trainer:
         fanouts = self.model.fanouts(train=False)
         s = torch.zeros(4, dtype=torch.float32, device=ids_padded.device)
         for ids, targets, mask in zip(ids_padded, targets_padded, mask_padded):
-            levels = sample_tree(graph.adj, graph.degrees, ids, fanouts, generator=generator)
+            levels = graph_sample_tree(graph, ids, fanouts, generator=generator)
             logits = self.model(levels, graph.feats)
             if self.task == "classification":
                 correct = torch.sum((logits.argmax(-1) == targets.long()) * mask)
@@ -338,7 +335,7 @@ class Trainer:
 
     def evaluate(
         self,
-        graph: DeviceGraph,
+        graph: Graph,
         ids: np.ndarray,
         targets: np.ndarray,
         generator: torch.Generator,
@@ -372,6 +369,7 @@ def fit(
     val_interval_batches: Optional[int] = None,
     checkpoint_every: int = 0,
     device: str | torch.device = "cuda",
+    csr: bool = False,
 ) -> Tuple[Trainer, TrainState, list]:
     """End-to-end training on a NodeProblem: per-epoch training over the train
     fold with the per-batch LR, validation on the full graph, one JSON metric
@@ -387,8 +385,11 @@ def fit(
     validation by exact full-graph inference (``nn/full_graph.py``) on the
     compute-dtype table, every ``exact_val_every``-th epoch and the last,
     sampled in between; ``patience`` and ``save_best`` then compare exact
-    epochs only. ``device="cuda"`` without a card raises; nothing falls back
-    to the CPU."""
+    epochs only. ``csr``: CSR adjacency for training and sampled validation;
+    exact validation keeps the full graph's adjacency dense (layer-wise
+    inference walks whole rows). ``config.feature_int8``: the feature table
+    int8 with per-column scales. ``device="cuda"`` without a card raises;
+    nothing falls back to the CPU."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("fit(device='cuda') needs a CUDA device; pass device='cpu' for the CPU")
@@ -407,12 +408,19 @@ def fit(
     if config.exact_val and not use_exact_val:
         log({"note": "exact_val unsupported for this aggregator; "
                      "falling back to sampled validation"})
+    elif use_exact_val and csr:
+        log({"note": "exact_val densifies the FULL-graph adjacency for the "
+                     "eval pass (training storage stays CSR); budget "
+                     "n_nodes*max_degree*4 bytes of transient HBM"})
     fdt = COMPUTE_DTYPES[config.compute_dtype]
-    graph_train = problem.device_graph(train=True, dtype=fdt, device=device)
+    graph_train = problem.device_graph(train=True, dtype=fdt, device=device, csr=csr,
+                                       quantize=config.feature_int8)
 
-    def get_graph_full() -> DeviceGraph:
+    def get_graph_full() -> Graph:
         # uploaded on first use: a run without validation never holds it
-        return problem.device_graph(train=False, dtype=fdt, device=device)
+        return problem.device_graph(train=False, dtype=fdt, device=device,
+                                    csr=csr and not use_exact_val,
+                                    quantize=config.feature_int8)
 
     state = trainer.init_state(graph_train)
     state, start_epoch = resume_state(state, resume_from, steps_per_epoch, log)
