@@ -80,7 +80,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    validation in bf16 and in int8 (val metrics, resident table bytes;
    dense against CSR adjacency bytes on the SBM store); the CLI with
    ``--feature-int8 --csr-adjacency`` for one epoch at 232,965 nodes;
-9. prints each phase's wall time and the kernels line (the off-path cases
+9. unsupervised training and the fused first layer: the kernels at the
+   NCE tree's shapes (512 · (2 + 10) = 6,144 roots: the walk hop 512 × 1,
+   dense and CSR; the tree's hops 6,144 × 25 and 153,600 × 10; its levels'
+   gathers; the deepest fanout mean over 153,600 roots × 10 × 602;
+   ``mean_project`` at (6,144, 25, 602) and (6,144, 25, 256); the corpus
+   rows) and at the fused first layer's (the projected 232,965 × 128 table's
+   gathers and fanout means, the backward's 128,000 raw rows), against
+   their plain versions and timed; one NCE loss and its gradients and one
+   fused forward and its gradients (f32, bf16) card against CPU; the NCE
+   step of ``scripts/bench_unsup.py`` (batch 512, walk length 3, 10
+   negatives, 1,689,600 sampled edges per step) for UNSUP_STEPS steps with
+   exact launches per step and a profile, then a few steps each with
+   degree-smoothed negatives, CSR adjacency and a walk corpus; phase 5's
+   configuration with ``fuse_first_layer`` beside phase 5's ms/step, with
+   the whole-table product timed alone; ``fit_unsupervised`` on
+   ``assortative_bench_store()`` with the probe (reported beside the
+   feature-only probe and chance, not gated); the CLI with
+   ``--unsupervised`` and a checkpoint, the export of its f16 embeddings,
+   and the CLI with ``--fuse-first-layer``;
+10. prints each phase's wall time and the kernels line (the off-path cases
    among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
@@ -125,6 +144,13 @@ SAMPLED_ROOTS = 32
 SAMPLED_TOL = 3e-2  # x max|logit|, phase 4's bf16 limit
 # phase 8: int8 feature storage and CSR adjacency
 STORAGE_STEPS, QUALITY_EPOCHS = 20, 3
+# phase 9: unsupervised training and the fused first layer; the walk and the
+# negatives of scripts/bench_unsup.py:20-24
+WALK_LENGTH, N_NEGATIVES, CORPUS_WALKS = 3, 10, 4
+UNSUP_STEPS, UNSUP_VARIANT_STEPS, FUSED_STEPS = 20, 5, 20
+# the JAX package's record on assortative_bench_store (RESULTS.md:498-500),
+# accuracies only: a logistic probe on the raw features, and chance
+FEATURE_ONLY_PROBE, CHANCE = 0.12, 0.024
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -155,7 +181,7 @@ SOURCES = {
 }
 
 
-def per_step_launches(agg, prep, fuse_last, int8=False, csr=False):
+def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=False):
     """Kernel launches of one training step (``encode`` with the fused
     sampler): 2 hops (``sample_hop``, or ``sample_hop_csr`` on CSR
     adjacency); the levels' gathers (of int8 rows on an int8 table), the
@@ -163,7 +189,16 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False):
     int8 table) when it is fused under mean or gcn (else gathered whole,
     fused or not); ``mean_project`` for each mean pairing of an unreduced
     neighborhood (2 when the deepest level is fused, else 3; a prep's f32
-    rows under bf16 go through it too)."""
+    rows under bf16 go through it too). With ``fuse_first`` (mean, identity,
+    two layers): ``project_gather``'s two self levels gathered from the
+    projected table, its two neighbor levels' fanout means there, the four
+    levels' raw rows gathered in its backward, and layer 2's one
+    ``mean_project``."""
+    hops = {"sample_hop": 0 if csr else 2, "sample_hop_csr": 2 if csr else 0}
+    if fuse_first and agg == "mean" and prep == "identity":
+        return {"select_columns": 0, "gather_rows": 6, "gather_rows_blockspec": 0,
+                "gather_fanout_mean": 2, "mean_project": 1, "gather_fanout_mean_int8": 0,
+                **hops}
     fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
     summary_kernel = fused and agg in ("mean", "gcn")
     mean_project = 0 if agg != "mean" else 2 if fused else 3
@@ -178,6 +213,7 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False):
 PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
 # the main path's configuration on an int8 table and CSR adjacency (phase 8)
 STORAGE_PER_STEP = per_step_launches("mean", "identity", "auto", int8=True, csr=True)
+FUSED_PER_STEP = per_step_launches("mean", "identity", "auto", fuse_first=True)  # phase 9
 
 
 def log(*args):
@@ -591,7 +627,8 @@ def phase_reference(torch, np, store, levels_cuda):
 
 
 def phase_main_path(torch, np, problem):
-    """Phase 5: the trainer on the full-width store, counters from 0."""
+    """Phase 5: the trainer on the full-width store, counters from 0.
+    Returns the launch counts and the ms/step."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.train.trainer import TrainConfig, Trainer, build_model
 
@@ -651,7 +688,7 @@ def phase_main_path(torch, np, problem):
                                   "loss_first5": float(first), "loss_last5": float(last),
                                   "val_accuracy": val}}))
     profile_steps(torch, trainer, state, graph, batches[:PROFILE_STEPS], ms_step)
-    return counts
+    return counts, ms_step
 
 
 def device_profile(torch, fn, calls):
@@ -917,7 +954,7 @@ def train_run(torch, np, label, problem, cfg, steps, warmup, csr=False):
     dt = time.perf_counter() - t0
     train_counts = kernels.launch_counts()
     want = per_step_launches(cfg.aggregator_class, cfg.prep_class, cfg.fuse_last,
-                             int8=cfg.feature_int8, csr=csr)
+                             int8=cfg.feature_int8, csr=csr, fuse_first=cfg.fuse_first_layer)
     if train_counts != {k: n * steps for k, n in want.items()}:
         raise AssertionError(f"{label}: launches in {steps} steps {train_counts}, expected "
                              f"{want} per step")
@@ -1503,6 +1540,439 @@ def phase_storage(torch, np, problem, graph, levels, sbm, smi, peaks):
     return results, by_path
 
 
+def unsup_per_step(csr=False, corpus=False):
+    """Kernel launches of one NCE step at phase 9's configuration: the walk's
+    WALK_LENGTH hops at fanout 1 (none with a corpus) and the tree's 2 hops
+    (``sample_hop``, or ``sample_hop_csr`` on CSR adjacency); the tree's
+    levels 0 and 1 gathered and the corpus rows (``gather_rows``); the
+    deepest level's ``gather_fanout_mean``; 2 ``mean_project``."""
+    hops = 2 + (0 if corpus else WALK_LENGTH)
+    return {"select_columns": 0, "sample_hop": 0 if csr else hops,
+            "gather_rows": 2 + int(corpus), "gather_rows_blockspec": 0,
+            "gather_fanout_mean": 1, "mean_project": 2, "gather_fanout_mean_int8": 0,
+            "sample_hop_csr": hops if csr else 0}
+
+
+def unsup_config(**kw):
+    """``scripts/bench_unsup.py:20-24``: ``bench_store()``, mean/identity,
+    batch 512, fanouts (25, 10), dims (128, 128), bf16 (lr 0.01)."""
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    return TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                       output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01, epochs=1,
+                       **kw)
+
+
+def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
+    """Phase 9 (a): the kernels at the shapes of this phase's paths, against
+    their plain versions (bitwise; ``mean_project`` within
+    MEAN_PROJECT_TOL) and timed (weight 0: off the main path's step). The
+    NCE tree of 512 · (2 + 10) = 6,144 roots: the walk hop (512 × 1, dense
+    and CSR), the tree's hops (6,144 × 25; 153,600 × 10), its levels 0 and 1
+    gathered (6,144 and 153,600 rows of 1,204 bytes), the deepest fanout
+    mean (153,600 roots × 10 × 602) and both layers' ``mean_project``
+    ((6,144, 25, 602), (6,144, 25, 256)); the corpus rows (int32, 512 × 16);
+    the fused first layer's gathers of the projected (232,965 × 128) bf16
+    table (512 and 12,800 rows), its fanout means there (512 × 25,
+    12,800 × 10) and its backward's raw rows at the deepest level (128,000;
+    its 512 and 12,800 rows are phase 3's feature gathers)."""
+    from tpu_sage_torch.kernels import gather, gather_mean, mean_project, sample_hop
+    from tpu_sage_torch.sample.sampler import sample_tree
+
+    bw, bf16_peak, f32_peak = peaks
+    feats, adj, deg = graph.feats, graph.adj, graph.degrees
+    n, max_degree = adj.shape
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cases = []
+
+    def distinct(t):
+        return int(torch.unique(t).numel())
+
+    def add_gather(case, table, ids):
+        q, row, ids64 = ids.shape[0], table.shape[1] * table.element_size(), ids.long()
+        cases.append(kernel_case(
+            "gather_rows", f"{case} {str(table.dtype)[6:]} {tuple(table.shape)} q={q}",
+            lambda t=table, i=ids: gather.gather_rows(t, i),
+            lambda t=table, i=ids: gather.gather_rows_reference(t, i),
+            lambda t=table, i=ids64: t[i], 4 * q + distinct(ids) * row + q * row, weight=0))
+
+    def add_hop(case, ids, f):
+        u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
+        ids64 = ids.long()
+        cols64 = sample_hop.hop_columns(u, deg[ids64].clamp_min(1)).long()
+        cases.append(kernel_case(
+            "sample_hop", f"{case}: ids ({ids.shape[0]},), u {tuple(u.shape)}",
+            lambda i=ids, u=u: sample_hop.sample_hop(adj, deg, i, u),
+            lambda i=ids, u=u: sample_hop.sample_hop_reference(adj, deg, i, u),
+            lambda i=ids64, c=cols64: adj[i[:, None], c],
+            4 * ids.shape[0] + 32 * distinct(ids64 // 8)
+            + 32 * distinct((ids64[:, None] * max_degree + cols64) // 8) + 8 * u.numel(),
+            weight=0))
+
+    anchors = torch.randint(0, n, (BATCH,), generator=gen, device="cuda", dtype=torch.int32)
+    add_hop("walk hop", anchors, 1)
+    u = torch.rand((BATCH, 1), generator=gen, device="cuda")
+    g = csr_graph
+    pos = g.indptr[anchors.long()].long()[:, None] + sample_hop.hop_columns(
+        u, g.degrees[anchors.long()].clamp_min(1)).long()
+    cases.append(kernel_case(
+        "sample_hop_csr", f"walk hop: ids ({BATCH},), u {tuple(u.shape)}, indices "
+        f"({g.indices.shape[0]},), window {g.window}",
+        lambda: sample_hop.sample_hop_csr(g.indptr, g.indices, g.degrees, anchors, u),
+        lambda: sample_hop.sample_hop_csr_reference(g.indptr, g.indices, g.degrees, anchors, u),
+        lambda: torch.where(g.degrees[anchors.long()][:, None] == 0, anchors[:, None],
+                            g.indices[pos]),
+        4 * BATCH + 2 * 32 * distinct(anchors.long() // 8) + 32 * distinct(pos // 8)
+        + 8 * u.numel(), weight=0))
+    roots = torch.randint(0, n, (BATCH * (2 + N_NEGATIVES),), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    tree = sample_tree(adj, deg, roots, FANOUTS, generator=gen)
+    add_hop("NCE tree hop 1", tree[0], FANOUTS[0])
+    add_hop("NCE tree hop 2", tree[1], FANOUTS[1])
+    add_gather("NCE level 0", feats, tree[0])
+    add_gather("NCE level 1", feats, tree[1])
+    f, d = FANOUTS[1], feats.shape[1]
+    r, l2, l2_64 = tree[2].shape[0] // f, tree[2], tree[2].long()
+    cases.append(kernel_case(
+        "gather_fanout_mean", f"NCE deepest level bf16 {tuple(feats.shape)} ids={l2.shape[0]} "
+        f"F={f}",
+        lambda: gather_mean.gather_fanout_mean(feats, l2, f),
+        lambda: gather_mean.gather_fanout_mean_reference(feats, l2, f),
+        lambda: feats[l2_64].float().view(r, f, d).mean(1),
+        4 * l2.shape[0] + distinct(l2) * d * 2 + r * d * 4, flops=l2.shape[0] * d,
+        peak=f32_peak, weight=0))
+    x0 = feats[tree[1].long()].view(-1, FANOUTS[0], d)
+    x1 = torch.relu(torch.randn((x0.shape[0], FANOUTS[0], 2 * DIMS[0]), generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+    for label, x in (("NCE layer 0", x0), ("NCE layer 1", x1)):
+        b, fo, dx = x.shape
+        w = (torch.randn((dx, DIMS[1]), generator=gen, device="cuda") / dx ** 0.5).to(x.dtype)
+        cases.append(kernel_case(
+            "mean_project", f"{label} x bf16 {tuple(x.shape)}, W {tuple(w.shape)}",
+            lambda x=x, w=w: mean_project.mean_project(x, w),
+            lambda x=x, w=w: mean_project.mean_project_reference(x, w),
+            lambda x=x, w=w: x.mean(1) @ w,
+            x.numel() * 2 + w.numel() * 2 + b * DIMS[1] * 2,
+            flops=2 * b * dx * DIMS[1] + b * fo * dx, peak=bf16_peak, tol=MEAN_PROJECT_TOL,
+            weight=0))
+    corpus = torch.randint(0, n, (n, CORPUS_WALKS * (WALK_LENGTH + 1)), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    add_gather("walk corpus rows", corpus, anchors)
+    del x0, x1, corpus
+
+    main_tree = sample_tree(adj, deg, anchors, FANOUTS, generator=gen)
+    proj = (feats @ (torch.randn((d, DIMS[0]), generator=gen, device="cuda")
+                     / d ** 0.5).to(feats.dtype)).contiguous()
+    add_gather("fused: projected level 0", proj, main_tree[0])
+    add_gather("fused: projected level 1", proj, main_tree[1])
+    for ids, fo in ((main_tree[1], FANOUTS[0]), (main_tree[2], FANOUTS[1])):
+        ro, ids64, w = ids.shape[0] // fo, ids.long(), proj.shape[1]
+        cases.append(kernel_case(
+            "gather_fanout_mean", f"fused: projected bf16 {tuple(proj.shape)} ids={ids.shape[0]} "
+            f"F={fo}",
+            lambda i=ids, fo=fo: gather_mean.gather_fanout_mean(proj, i, fo),
+            lambda i=ids, fo=fo: gather_mean.gather_fanout_mean_reference(proj, i, fo),
+            lambda i=ids64, fo=fo, ro=ro: proj[i].float().view(ro, fo, w).mean(1),
+            4 * ids.shape[0] + distinct(ids) * w * 2 + ro * w * 4, flops=ids.shape[0] * w,
+            peak=f32_peak, weight=0))
+    add_gather("fused backward: raw level 2", feats, main_tree[2])
+    results = time_cases(torch, cases, bw)
+    del proj
+    return results
+
+
+def check_unsup_and_fused_card_vs_cpu(torch, np):
+    """Phase 9 (b): on a small SBM store (2,000 × 64), the same parameters
+    and injected levels on the card and on the CPU's plain path: one NCE
+    loss and its gradients (f32: the loss within 1e-4 relative, each
+    gradient within 1e-4 of its scale), and the fused first layer's logits
+    and the gradients of their squared sum (f32 the same limits; bf16
+    logits within SAMPLED_TOL of their scale plus one bf16 ulp, gradients
+    within 1.5e-2 of their scale)."""
+    from tpu_sage_torch.data.synthetic import sbm_problem
+    from tpu_sage_torch.nn.params import flax_key, flax_params, load_flax_params
+    from tpu_sage_torch.train.trainer import build_model
+    from tpu_sage_torch.train.unsupervised import UnsupConfig, UnsupervisedTrainer
+
+    problem = sbm_problem(n_nodes=2000, n_classes=5, feat_dim=64, seed=4)
+    rng = np.random.default_rng(8)
+    b, q = 64, N_NEGATIVES
+    sizes = [b * (2 + q)]
+    for f in FANOUTS:
+        sizes.append(sizes[-1] * f)
+    levels = [rng.integers(0, problem.n_nodes, s).astype(np.int32) for s in sizes]
+
+    def compare(label, outs, tol_out, tol_grad, rtol_out=0.0):
+        (want, wgrads), (got, ggrads) = outs["cpu"], outs["cuda"]
+        scale = np.abs(want).max()
+        err = np.abs(got - want).max()
+        if not (np.isfinite(got).all()
+                and np.all(np.abs(got - want) <= tol_out * scale + rtol_out * np.abs(want))):
+            raise AssertionError(f"{label}: card vs CPU max abs err {err} (scale {scale})")
+        worst = 0.0
+        for k in wgrads:
+            g = np.abs(wgrads[k]).max()
+            e = np.abs(ggrads[k] - wgrads[k]).max()
+            if not e <= tol_grad * max(g, 1e-30):
+                raise AssertionError(f"{label}: gradient {k} card vs CPU max abs err {e} "
+                                     f"> {tol_grad} x {g}")
+            worst = max(worst, e / max(g, 1e-30))
+        log(f"  {label}: card vs CPU max abs err {err:.4g} (scale {scale:.4g}); worst gradient "
+            f"err {worst:.3g} of its scale")
+
+    cfg = unsup_config().replace(compute_dtype="float32", batch_size=b)
+    src = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+    src.reset_parameters(torch.Generator().manual_seed(12))
+    tree = flax_params(src)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+        trainer = UnsupervisedTrainer(model, cfg, UnsupConfig(WALK_LENGTH, N_NEGATIVES), 10)
+        graph = problem.device_graph(train=True, device=dev)
+        state = trainer.init_state(graph)
+        load_flax_params(model, tree)
+        loss = trainer.nce_loss_and_grads(
+            state, graph, torch.as_tensor(levels[0][:b], device=dev),
+            levels=[torch.as_tensor(l, device=dev) for l in levels])
+        outs[dev] = (np.array([loss.item()]),
+                     {flax_key(k): p.grad.float().cpu().numpy()
+                      for k, p in model.named_parameters()})
+    compare("NCE loss, f32", outs, 1e-4, 1e-4)
+
+    fused_levels = [l[:s] for l, s in zip(levels, (b, b * FANOUTS[0],
+                                                   b * FANOUTS[0] * FANOUTS[1]))]
+    for dtype_name, tols in (("float32", (1e-4, 1e-4, 0.0)),
+                             ("bfloat16", (SAMPLED_TOL, 1.5e-2, 2.0 ** -7))):
+        cfg = unsup_config(fuse_first_layer=True).replace(compute_dtype=dtype_name)
+        src = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+        src.reset_parameters(torch.Generator().manual_seed(13))
+        tree = flax_params(src)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            model = load_flax_params(build_model(cfg, problem.n_nodes, problem.n_classes,
+                                                 problem.feats_dim), tree).to(dev)
+            feats = problem.device_graph(train=True, device=dev,
+                                         dtype=getattr(torch, dtype_name)).feats
+            logits = model([torch.as_tensor(l, device=dev) for l in fused_levels], feats)
+            logits.float().square().sum().backward()
+            outs[dev] = (logits.detach().float().cpu().numpy(),
+                         {flax_key(k): p.grad.float().cpu().numpy()
+                          for k, p in model.named_parameters()})
+        compare(f"fused first layer, {dtype_name} logits", outs, tols[0], tols[1], tols[2])
+
+
+def unsup_run(torch, np, label, problem, unsup, steps, warmup, csr=False, walks=None,
+              profile=False):
+    """``steps`` timed NCE ``train_step``s at phase 9's configuration after
+    ``warmup``, with the launch counters from 0 checked per step exactly and
+    the loss finite and falling; with ``profile``, PROFILE_STEPS more steps
+    under torch.profiler. Returns the run's record and its launch counts."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.train.trainer import build_model
+    from tpu_sage_torch.train.unsupervised import UnsupervisedTrainer, unsup_gather_defaults
+
+    cfg = unsup_gather_defaults(unsup_config())
+    train_ids = problem.folds["train"]
+    model = build_model(cfg, problem.n_nodes, max(problem.n_classes, 2), problem.feats_dim)
+    trainer = UnsupervisedTrainer(model, cfg, unsup, steps_per_epoch=len(train_ids) // BATCH)
+    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=csr)
+    state = trainer.init_state(graph)
+    n_batches = warmup + steps + (PROFILE_STEPS if profile else 0)
+    perm = np.random.default_rng(7).permutation(train_ids)
+    batches = [torch.as_tensor(perm[i * BATCH:(i + 1) * BATCH], dtype=torch.int32,
+                               device="cuda") for i in range(n_batches)]
+    for ids in batches[:warmup]:
+        state, _ = trainer.train_step(state, graph, ids, walks)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for ids in batches[warmup:warmup + steps]:
+        state, m = trainer.train_step(state, graph, ids, walks)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = unsup_per_step(csr=csr, corpus=walks is not None)
+    if counts != {k: v * steps for k, v in want.items()}:
+        raise AssertionError(f"{label}: launches in {steps} steps {counts}, expected {want} "
+                             f"per step")
+    losses = torch.stack(losses).float().cpu().numpy()
+    third = max(1, steps // 3)
+    first, last = losses[:third].mean(), losses[-third:].mean()
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{label}: losses {losses} not finite and falling")
+    ms_step = dt / steps * 1e3
+    edges = BATCH * (2 + unsup.n_negatives) * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
+    rec = {"run": label, "csr": csr, "corpus": walks is not None, "neg_power": unsup.neg_power,
+           "steps": steps, "ms_per_step": ms_step, "edges_per_step": edges,
+           "edges_per_s": edges * steps / dt, "loss_first": float(first),
+           "loss_last": float(last), "launches_per_step": want}
+    if profile:
+        it = iter(batches[warmup + steps:])
+
+        def step():
+            trainer.train_step(state, graph, next(it), walks)
+
+        kern, launches = device_profile(torch, step, PROFILE_STEPS)
+        device_ms = sum(k[1] for k in kern)
+        rec.update(device_kernel_ms_per_step=device_ms,
+                   device_busy_share=device_ms / ms_step if device_ms else None,
+                   kernel_launches_per_step=launches,
+                   top_kernels_ms_per_step=[[k[0][:80], k[1], k[2]] for k in kern[:10]])
+    log(json.dumps({"unsupervised_run": rec}))
+    return rec, counts
+
+
+def device_walk_corpus(torch, graph, n_walks, length, seed):
+    """A walk corpus ``(n_nodes, n_walks, length + 1)`` made on the card
+    with the port's own walk hops: every node starts ``n_walks`` walks."""
+    from tpu_sage_torch.sample.sampler import uniform_neighbor_sample
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = graph.degrees.shape[0]
+    starts = torch.arange(n, dtype=torch.int32, device="cuda").repeat(n_walks)
+    steps = [starts]
+    for _ in range(length):
+        steps.append(uniform_neighbor_sample(graph.adj, graph.degrees, steps[-1], 1,
+                                             generator=gen)[:, 0])
+    return torch.stack(steps, 1).view(n_walks, n, length + 1).transpose(0, 1).contiguous()
+
+
+def unsup_quality(torch, np):
+    """Phase 9 (e): ``fit_unsupervised`` on ``assortative_bench_store()``
+    (the label signal in the edges) at phase 9's configuration, 2 epochs and
+    the probe after the last; the loss must be finite and fall; the probe's
+    val accuracy is reported beside the JAX package's record of a
+    feature-only probe and chance, not gated."""
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import assortative_bench_store
+    from tpu_sage_torch.train.unsupervised import UnsupConfig, fit_unsupervised
+
+    problem = NodeProblem(assortative_bench_store())
+    t0 = time.perf_counter()
+    _, _, hist = fit_unsupervised(problem, unsup_config().replace(epochs=2),
+                                  UnsupConfig(WALK_LENGTH, N_NEGATIVES), log=lambda r: None,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = [h["unsup_loss"] for h in hist]
+    probe = hist[-1].get("probe_val_accuracy", -1.0)
+    if not (len(losses) == 2 and np.isfinite(losses).all() and losses[1] < losses[0]
+            and 0.0 <= probe <= 1.0):
+        raise AssertionError(f"fit_unsupervised on the assortative store: {hist}")
+    log(json.dumps({"unsupervised_quality": {
+        "store": "assortative_bench_store()", "epochs": 2, "unsup_loss": losses,
+        "epoch_s": [h["elapsed"] for h in hist], "wall_s": wall,
+        "probe_val_accuracy": probe, "feature_only_probe_reference": FEATURE_ONLY_PROBE,
+        "chance": CHANCE}}))
+
+
+def unsup_entry_points(torch, np):
+    """Phase 9 (f): ``tpu_sage_torch.cli.main --unsupervised`` for one epoch
+    on the 232,965-node Reddit-shaped store with a checkpoint (and the
+    probe), ``tpu_sage_torch.export.main`` writing its f16 embeddings
+    (232,965 × 256, finite; ``gather_rows`` 2 × 57 launches and nothing
+    else), then ``--fuse-first-layer`` for one epoch; each with the launch
+    counters from 0."""
+    import os
+    import tempfile
+
+    from tpu_sage_torch import cli, export, kernels
+
+    base = ["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES),
+            "--compute-dtype", "bfloat16", "--batch-size", str(BATCH), "--n-train-samples",
+            "25,10", "--n-val-samples", "25,10", "--output-dims", "128,128", "--epochs", "1"]
+    by_path, walls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, out = os.path.join(tmp, "unsup.npz"), os.path.join(tmp, "emb.npy")
+        runs = (("unsup_cli", cli.main, base + ["--unsupervised", "--walk-length",
+                                                 str(WALK_LENGTH), "--n-negatives",
+                                                 str(N_NEGATIVES), "--checkpoint-path", ck]),
+                ("unsup_export", export.main,
+                 ["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES),
+                  "--checkpoint", ck, "--checkpoint-config", "--out", out, "--out-dtype",
+                  "float16"]),
+                ("fused_cli", cli.main, base + ["--fuse-first-layer"]))
+        for label, entry, argv in runs:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            if entry(argv) != 0:
+                raise AssertionError(f"{label} failed: {argv}")
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+            by_path[label] = kernels.launch_counts()
+            if label == "unsup_export":
+                arr = np.load(out)
+                if (arr.shape != (SERVING_NODES, 2 * DIMS[1]) or arr.dtype != np.float16
+                        or not np.isfinite(arr).all()):
+                    raise AssertionError(f"exported embeddings {arr.shape} {arr.dtype}")
+    n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
+    if by_path["unsup_export"] != {**{k: 0 for k in by_path["unsup_export"]},
+                                   "gather_rows": 2 * n_chunks}:
+        raise AssertionError(f"export launches {by_path['unsup_export']}")
+    for label in ("unsup_cli", "fused_cli"):
+        want = unsup_per_step() if label == "unsup_cli" else FUSED_PER_STEP
+        if any((by_path[label][k] == 0) != (want[k] == 0) for k in want):
+            raise AssertionError(f"{label} launches {by_path[label]}")
+    log(f"  CLI --unsupervised 1 epoch + probe {walls['unsup_cli']:.1f} s, export of f16 "
+        f"embeddings ({SERVING_NODES}, {2 * DIMS[1]}) {walls['unsup_export']:.1f} s, CLI "
+        f"--fuse-first-layer 1 epoch {walls['fused_cli']:.1f} s; launches {by_path}")
+    return by_path
+
+
+def phase_unsupervised(torch, np, problem, graph, smi, peaks, main_ms):
+    """Phase 9: unsupervised training and the fused first layer. (a) kernels
+    at this phase's shapes; (b) card against CPU; (c) the NCE step at
+    ``scripts/bench_unsup.py``'s configuration, UNSUP_STEPS timed with exact
+    launches per step and a profile, then UNSUP_VARIANT_STEPS each with
+    degree-smoothed negatives, CSR adjacency and a walk corpus; (d) the main
+    path's configuration with ``fuse_first_layer``, FUSED_STEPS, beside
+    phase 5's ms/step (``main_ms``), and the two whole-table products timed
+    alone; (e) the probe on the assortative store; (f) the entry points.
+    Returns the timed cases and the launch counts by path."""
+    from tpu_sage_torch.bench.timing import cuda_ms
+    from tpu_sage_torch.train.unsupervised import UnsupConfig
+
+    csr_graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=True)
+    results = unsup_new_shape_cases(torch, graph, csr_graph, peaks)
+    check_unsup_and_fused_card_vs_cpu(torch, np)
+
+    by_path, runs = {}, []
+    plain = UnsupConfig(WALK_LENGTH, N_NEGATIVES)
+    corpus = device_walk_corpus(torch, graph, CORPUS_WALKS, WALK_LENGTH, 5)
+    for path, label, unsup, steps, kw in (
+            ("unsup_train", "NCE step", plain, UNSUP_STEPS, dict(profile=True)),
+            ("unsup_neg_power", "NCE step, neg_power 0.75",
+             UnsupConfig(WALK_LENGTH, N_NEGATIVES, 0.75), UNSUP_VARIANT_STEPS, {}),
+            ("unsup_csr", "NCE step, CSR", plain, UNSUP_VARIANT_STEPS, dict(csr=True)),
+            ("unsup_corpus", "NCE step, walk corpus", plain, UNSUP_VARIANT_STEPS,
+             dict(walks=corpus))):
+        rec, by_path[path] = unsup_run(torch, np, label, problem, unsup, steps, 2, **kw)
+        runs.append(rec)
+    del corpus
+
+    rec, by_path["fused_train"] = train_run(torch, np, "main path, fuse_first_layer", problem,
+                                            unsup_config(fuse_first_layer=True), FUSED_STEPS,
+                                            WARMUP_STEPS)
+    w = torch.randn((graph.feats.shape[1], DIMS[0]), device="cuda").to(torch.bfloat16)
+    table_ms = cuda_ms(lambda: graph.feats @ w)
+    n, d = graph.feats.shape
+    rec.update(main_path_ms_per_step=main_ms, whole_table_product_ms=table_ms,
+               whole_table_products_per_step=2,
+               whole_table_product_bound_ms=max(
+                   (n * d * 2 + d * DIMS[0] * 2 + n * DIMS[0] * 2) / peaks[0],
+                   2 * n * d * DIMS[0] / peaks[1]) * 1e3)
+    runs.append(rec)
+    log(json.dumps({"fused_first_layer": rec}))
+
+    unsup_quality(torch, np)
+    by_path.update(unsup_entry_points(torch, np))
+    log(smi)
+    log(json.dumps({"unsupervised": {"runs": runs}}))
+    return results, by_path
+
+
 def main() -> int:
     import torch
 
@@ -1568,7 +2038,8 @@ def main() -> int:
     phase_reference(torch, np, store, levels)
 
     phase("phase 5: main path")
-    by_path = {"train_steps": phase_main_path(torch, np, problem)}
+    main_counts, main_ms = phase_main_path(torch, np, problem)
+    by_path = {"train_steps": main_counts}
 
     phase("phase 6: serving path")
     by_path.update(phase_serving(torch, np, smi, peaks))
@@ -1583,6 +2054,12 @@ def main() -> int:
                                                    peaks)
     results += storage_results
     by_path.update(storage_paths)
+
+    phase("phase 9: unsupervised and fused first layer")
+    unsup_results, unsup_paths = phase_unsupervised(torch, np, problem, graph, smi, peaks,
+                                                    main_ms)
+    results += unsup_results
+    by_path.update(unsup_paths)
     phase(None)
 
     kernels_line = []
@@ -1601,6 +2078,8 @@ def main() -> int:
             "launches_by_path": {path: c[name_k] for path, c in by_path.items()},
             "launches_per_step": PER_STEP[name_k],
             "launches_per_step_int8_csr": STORAGE_PER_STEP[name_k],
+            "launches_per_step_unsupervised": unsup_per_step()[name_k],
+            "launches_per_step_fused_first_layer": FUSED_PER_STEP[name_k],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)

@@ -1,6 +1,7 @@
 """The port's CLI, ``python -m tpu_sage_torch.cli`` (mirroring
 ``tests/test_cli.py``): in-process ``main()`` with ``--device cpu``; flags
-of paths not ported yet exit 2 naming their ROADMAP item."""
+of paths not ported yet (the partitioned path) exit 2 naming their ROADMAP
+item."""
 
 import json
 import os
@@ -146,12 +147,65 @@ def test_parse_ints():
 @pytest.mark.parametrize("flag,item", [
     (["--partitioned"], 14), (["--halo", "exact"], 14), (["--halo-capacity-factor", "2"], 14),
     (["--halo-chunks", "4"], 14), (["--halo-measure-steps", "3"], 14),
-    (["--reorder", "degree"], 14), (["--unsupervised"], 12), (["--fuse-first-layer"], 13),
+    (["--reorder", "degree"], 14),
 ], ids=lambda v: v[0] if isinstance(v, list) else str(v))
 def test_unported_flag_exits_2(capsys, flag, item):
     assert main(TINY + ["--epochs", "1"] + flag) == 2
     assert f"{flag[0]} is not ported yet (ROADMAP Queue 1 item {item})" in \
         capsys.readouterr().err
+
+
+def test_partitioned_unsupervised_exits_2_naming_item_14(capsys):
+    """The partitioned unsupervised loop belongs to item 14, whatever item
+    ported the single-device one."""
+    assert main(TINY + ["--epochs", "1", "--partitioned", "--unsupervised"]) == 2
+    assert "--partitioned is not ported yet (ROADMAP Queue 1 item 14)" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag", ["--unsupervised", "--fuse-first-layer"])
+def test_training_flag_is_accepted_and_reaches_fit(monkeypatch, capsys, flag):
+    """Refused until ROADMAP Queue 1 items 12 (``--unsupervised``) and 13
+    (``--fuse-first-layer``) were ported. ``--unsupervised`` reaches
+    ``fit_unsupervised`` with the walk length, negatives, probe interval,
+    ``probe=not --no-eval`` and ``csr=--csr-adjacency``; ``--fuse-first-layer``
+    reaches ``fit`` as ``fuse_first_layer`` in the config. Either run trains
+    with a falling loss, and echoes the config the JAX package's CLI echoes
+    for the same argv; with ``--device cuda`` and no card it exits 2."""
+    from tpu_sage_torch.train import trainer, unsupervised
+
+    seen = {}
+    module, name = (unsupervised, "fit_unsupervised") if flag == "--unsupervised" \
+        else (trainer, "fit")
+    real = getattr(module, name)
+
+    def spy(problem, config, *args, **kw):
+        seen.update(config=config, args=args, **kw)
+        return real(problem, config, *args, **kw)
+
+    monkeypatch.setattr(module, name, spy)
+    argv = TINY[:-2] + ["--epochs", "3", "--batch-size", "64", "--csr-adjacency", flag]
+    if flag == "--unsupervised":
+        argv += ["--walk-length", "2", "--n-negatives", "4", "--probe-every", "3"]
+    assert main(argv + ["--device", "cpu"]) == 0
+    recs = _capture(capsys)
+    assert seen["csr"] is True and seen["device"] == "cpu"
+    key = "train_loss"
+    if flag == "--unsupervised":
+        assert seen["args"][0] == unsupervised.UnsupConfig(walk_length=2, n_negatives=4,
+                                                           probe_every=3)
+        assert seen["probe"] is True
+        assert any("probe_val_accuracy" in r for r in recs)
+        key = "unsup_loss"
+    else:
+        assert seen["config"].fuse_first_layer is True
+    losses = [r[key] for r in recs if key in r]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    cfg = recs[0]["config"]
+    assert jax_main(argv + ["--no-eval"]) == 0
+    assert _capture(capsys)[0]["config"] == cfg
+    if not torch.cuda.is_available():  # the card is the default: without one, exit 2
+        assert main(argv) == 2
+        assert "--device cpu" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", ["--csr-adjacency", "--feature-int8"])

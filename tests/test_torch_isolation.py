@@ -1,5 +1,6 @@
 """The port stands alone: tpu_sage_torch and chip_smoke.py import neither JAX
-nor anything of the JAX package."""
+nor anything of the JAX package, nor scikit-learn (the card's machine has
+none)."""
 
 import glob
 import os
@@ -12,21 +13,28 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_FILES = sorted(glob.glob(os.path.join(REPO, "tpu_sage_torch", "**", "*.py"), recursive=True))
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|flax|optax)\b|from\s+(jax|flax|optax)\b"
+    r"^\s*(import\s+(jax|flax|optax|sklearn)\b|from\s+(jax|flax|optax|sklearn)\b"
     r"|import\s+tpu_sage(\.|\s|$)|from\s+tpu_sage(\.|\s))",
     re.MULTILINE,
 )
 
 
 def test_importing_the_port_loads_no_jax_module():
+    """Every module of the port (``train/unsupervised.py``, whose probe is
+    written without scikit-learn, and ``nn/fused.py`` included) imports
+    neither JAX nor the JAX package nor scikit-learn."""
+    modules = sorted(
+        "tpu_sage_torch." + os.path.relpath(p, os.path.join(REPO, "tpu_sage_torch"))[:-3]
+        .replace(os.sep, ".").removesuffix(".__init__") for p in PORT_FILES)
+    assert "tpu_sage_torch.train.unsupervised" in modules and "tpu_sage_torch.nn.fused" in modules
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
         "before = set(sys.modules)\n"
-        "import tpu_sage_torch, tpu_sage_torch.train.trainer, tpu_sage_torch.data.synthetic\n"
-        "import tpu_sage_torch.cli, tpu_sage_torch.export, tpu_sage_torch.nn.full_graph\n"
-        "import tpu_sage_torch.train.checkpoint\n"
+        "import tpu_sage_torch\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'tpu_sage'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'tpu_sage', 'sklearn'))\n"
         "print(','.join(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -46,7 +54,7 @@ def test_source_has_no_jax_or_reference_import(path):
 def test_forbidden_pattern_catches_what_it_should():
     for line in ("import jax", "from jax import numpy", "import flax.linen as nn",
                  "from tpu_sage.ops import row_gather", "import tpu_sage",
-                 "  from optax import adam"):
+                 "  from optax import adam", "from sklearn.linear_model import LogisticRegression"):
         assert FORBIDDEN.search(line), line
     for line in ("import tpu_sage_torch", "from tpu_sage_torch.ops import row_gather",
                  "# tpu_sage/kernels/select.py", "import jaxtyping_like_name_x"):

@@ -204,10 +204,22 @@ def test_config_fields_match_reference():
     assert ours == ref
 
 
-@pytest.mark.parametrize("kw", [dict(fuse_first_layer=True)])
-def test_unported_options_raise_not_implemented(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.check_ported(trainer.TrainConfig(**kw))
+def test_fuse_first_layer_is_accepted_and_reaches_fit():
+    """Refused until ROADMAP Queue 1 item 13 was ported: ``check_ported``
+    accepts ``fuse_first_layer``, ``build_model`` passes it to the model,
+    and ``fit`` trains the fused model (bf16) on an SBM store with a falling
+    loss and the JAX package's val accuracy within 0.05."""
+    kw = dict(fuse_first_layer=True, compute_dtype="bfloat16", batch_size=64, epochs=3,
+              n_train_samples=(5, 3), n_val_samples=(5, 3), output_dims=(16, 16))
+    config = trainer.TrainConfig(**kw)
+    trainer.check_ported(config)
+    assert trainer.build_model(config, 50, 3, 8).fuse_first_layer is True
+    _, _, hist = trainer.fit(sbm_problem(n_nodes=400, n_classes=4, feat_dim=16, seed=3),
+                             config, log=lambda d: None, device="cpu")
+    _, _, jhist = jtrainer.fit(j_sbm_problem(n_nodes=400, n_classes=4, feat_dim=16, seed=3),
+                               jtrainer.TrainConfig(**kw), log=lambda d: None)
+    assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    assert abs(hist[-1]["val_metric"] - jhist[-1]["val_metric"]) <= 0.05
 
 
 def test_feature_int8_is_accepted_and_reaches_fit():
@@ -296,3 +308,34 @@ def test_gcn_stays_at_chance_on_bench_store_in_both_packages():
         if agg == "gcn":
             np.testing.assert_allclose([h["train_loss"] for h in thist],
                                        [h["train_loss"] for h in jhist], rtol=0, atol=0.02)
+
+
+def test_ppi_lstm_stays_at_zero_micro_f1_in_both_packages():
+    """``configs/ppi_lstm.json`` (batch 64, 2 epochs) on a small multilabel
+    SBM store of PPI's widths (400 nodes, 50 features, 121 labels, about 11 %
+    positives): the micro-F1 stays 0 in the JAX package as in the port (every
+    logit negative: all-negative is the early BCE optimum), while both
+    losses fall and agree within 0.02 (their samplers draw different
+    neighbors)."""
+    from tpu_sage.data.problem import NodeProblem as JNodeProblem
+    from tpu_sage.data.synthetic import sbm_store as j_sbm_store
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import sbm_store
+
+    store = dict(n_nodes=400, feat_dim=50, n_classes=121, avg_degree=14, max_degree=64,
+                 task="multilabel_classification", seed=6)
+    preset = os.path.join(REPO, "configs", "ppi_lstm.json")
+    over = dict(batch_size=64, epochs=2)
+    _, _, jhist = jtrainer.fit(JNodeProblem(j_sbm_store(**store)),
+                               jtrainer.TrainConfig.from_json(preset).replace(**over),
+                               log=lambda d: None)
+    _, _, thist = trainer.fit(NodeProblem(sbm_store(**store)),
+                              trainer.TrainConfig.from_json(preset).replace(**over),
+                              log=lambda d: None, device="cpu")
+    print({"jax": [(h["train_loss"], h["val_metric"]) for h in jhist],
+           "port": [(h["train_loss"], h["val_metric"]) for h in thist]})
+    for hist in (jhist, thist):
+        assert [h["val_metric"] for h in hist] == [0.0, 0.0]
+        assert hist[-1]["train_loss"] < hist[0]["train_loss"]
+    np.testing.assert_allclose([h["train_loss"] for h in thist],
+                               [h["train_loss"] for h in jhist], rtol=0, atol=0.02)

@@ -9,7 +9,9 @@ find.
 Ported so far: supervised training with dense padded or CSR adjacency,
 dense or int8 feature storage, and every aggregator (``mean``, ``gcn``, ``max_pool``, ``mean_pool``, ``attention``,
 ``lstm``) and prep (``identity``, ``linear``, ``node_embedding``) — the paths
-``fit()`` runs — and the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
+``fit()`` runs — with the fused first layer (``nn/fused``); unsupervised
+training over random walks with its logistic probe
+(``train/unsupervised``); and the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
 exact full-graph inference (``nn/full_graph``), the exporter (``export``)
 and the CLI (``cli``). The hot functions (sampler hop, dense and CSR, column
 select, row gather, gather + fanout mean, dense and int8, mean + projection)

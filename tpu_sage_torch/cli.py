@@ -11,8 +11,12 @@ Usage::
     python -m tpu_sage_torch.cli --synthetic sbm --epochs 10 --device cpu
 
 The run is on the CUDA card unless ``--device cpu`` is given; without a card
-``--device cuda`` exits 2, and nothing falls back to the CPU. Flags of paths
-not ported yet exit 2 naming their ROADMAP item. ``--gather-form``,
+``--device cuda`` exits 2, and nothing falls back to the CPU.
+``--unsupervised`` trains with the NCE objective
+(``train/unsupervised.py::fit_unsupervised``, the logistic probe unless
+``--no-eval``); ``--fuse-first-layer`` projects the feature table once per
+step (``nn/fused.py``). Flags of paths not ported yet (the partitioned
+multi-device path) exit 2 naming their ROADMAP item. ``--gather-form``,
 ``--gather-form-deep`` and ``--gather-chunks`` go into the config and change
 nothing on the port. The reference's capacity advice on running out of
 device memory is not ported (ROADMAP Queue 1 item 15): the error propagates.
@@ -87,7 +91,8 @@ def parse_args(argv=None):
     ap.add_argument("--halo-chunks", type=int, default=None)
     ap.add_argument("--halo-measure-steps", type=int, default=None)
     ap.add_argument("--fuse-first-layer", action="store_true",
-                    help="whole-table projection first layer (not ported yet)")
+                    help="mean/identity: project the feature table once per "
+                         "step and gather in output space")
     ap.add_argument("--gather-form", default=None,
                     choices=["masked", "plain", "masked_chunked"],
                     help="TPU gather lowering; recorded in the config, no "
@@ -112,10 +117,12 @@ def parse_args(argv=None):
     ap.add_argument("--reorder", default=None, choices=["degree", "locality"],
                     help="node reordering before partitioning (not ported yet)")
     ap.add_argument("--unsupervised", action="store_true",
-                    help="skip-gram negative-sampling objective (not ported yet)")
+                    help="skip-gram negative-sampling objective over random walks")
     ap.add_argument("--walk-length", type=int, default=3)
     ap.add_argument("--n-negatives", type=int, default=10)
-    ap.add_argument("--probe-every", type=int, default=0)
+    ap.add_argument("--probe-every", type=int, default=0,
+                    help="unsupervised: logistic-probe val accuracy every K "
+                         "epochs (0 = after the last epoch only)")
     ap.add_argument("--debug-nans", action="store_true",
                     help="torch.autograd.set_detect_anomaly(True)")
     ap.add_argument("--log-path", default=None,
@@ -140,9 +147,7 @@ def _unported_flag(args):
             (args.halo_capacity_factor is not None, "--halo-capacity-factor", 14),
             (args.halo_chunks is not None, "--halo-chunks", 14),
             (args.halo_measure_steps is not None, "--halo-measure-steps", 14),
-            (args.reorder is not None, "--reorder", 14),
-            (args.unsupervised, "--unsupervised", 12),
-            (args.fuse_first_layer, "--fuse-first-layer", 13)):
+            (args.reorder is not None, "--reorder", 14)):
         if given:
             return flag, item
     return None
@@ -245,6 +250,8 @@ def main(argv=None):
         given["save_best"] = True
     if args.feature_int8:
         given["feature_int8"] = True
+    if args.fuse_first_layer:
+        given["fuse_first_layer"] = True
     if args.config:
         # the preset is the base; flags PRESENT ON THE COMMAND LINE override
         # it (read from the raw argv, so a flag given at its default value
@@ -284,20 +291,37 @@ def main(argv=None):
 
 
 def _run_fit(args, problem, config, log):
-    """Supervised single-device training, then the final checkpoint (or,
-    under --save-best, the final state in the ``.last`` sibling when
-    --checkpoint-every is set: the best state is already in the path)."""
+    """Single-device training, supervised or (``--unsupervised``) with the
+    NCE objective, then the final checkpoint (or, under --save-best, the
+    final state in the ``.last`` sibling when --checkpoint-every is set: the
+    best state is already in the path)."""
     from tpu_sage_torch.train.checkpoint import save_checkpoint
-    from tpu_sage_torch.train.trainer import fit
 
-    _, state, _ = fit(
-        problem, config, eval_every_epoch=not args.no_eval,
-        resume_from=args.checkpoint_path, log=log,
-        val_interval_batches=args.val_interval,
-        checkpoint_every=args.checkpoint_every,
-        device=args.device,
-        csr=args.csr_adjacency,
-    )
+    if args.unsupervised:
+        from tpu_sage_torch.train.unsupervised import UnsupConfig, fit_unsupervised
+
+        _, state, _ = fit_unsupervised(
+            problem, config,
+            UnsupConfig(walk_length=args.walk_length, n_negatives=args.n_negatives,
+                        probe_every=args.probe_every),
+            log=log,
+            resume_from=args.checkpoint_path,
+            checkpoint_every=args.checkpoint_every,
+            probe=not args.no_eval,  # the paper's logistic probe on the embeddings
+            csr=args.csr_adjacency,
+            device=args.device,
+        )
+    else:
+        from tpu_sage_torch.train.trainer import fit
+
+        _, state, _ = fit(
+            problem, config, eval_every_epoch=not args.no_eval,
+            resume_from=args.checkpoint_path, log=log,
+            val_interval_batches=args.val_interval,
+            checkpoint_every=args.checkpoint_every,
+            device=args.device,
+            csr=args.csr_adjacency,
+        )
     if args.checkpoint_path:
         path = None
         if not args.save_best:

@@ -11,6 +11,8 @@ problem.h5 schema (shared with the JAX package):
             degrees (n,) int32, train_degrees (n,) int32,
             feats (n, d) float32, targets (n,) int64 | (n, c) float32,
             folds (n,) int8  [0=train, 1=val, 2=test]
+            walks (n, n_walks, L+1) int  [optional: a random-walk corpus,
+                                          the unsupervised path's positives]
   attrs:    task (str), n_classes (int)
 """
 
@@ -48,6 +50,7 @@ class NodeProblem:
         self.task = store.task
         self.n_classes = store.n_classes
         self.folds: Dict[str, np.ndarray] = store.folds
+        self.walks: Optional[np.ndarray] = None  # (n_nodes, n_walks, L+1) corpus
         self._device_graphs: Dict[tuple, DeviceGraph | CSRDeviceGraph] = {}
 
     @classmethod
@@ -66,6 +69,7 @@ class NodeProblem:
             feats = f["feats"][:].astype(np.float32)
             targets = f["targets"][:]
             fold_codes = f["folds"][:]
+            walks = f["walks"][:] if "walks" in f else None
             task = f.attrs.get("task", "classification")
             if isinstance(task, bytes):
                 task = task.decode()
@@ -74,11 +78,13 @@ class NodeProblem:
             name: np.nonzero(fold_codes == code)[0].astype(np.int64)
             for name, code in FOLD_CODES.items()
         }
-        return cls(GraphStore(
+        problem = cls(GraphStore(
             adj=adj, degrees=degrees, train_adj=train_adj,
             train_degrees=train_degrees, feats=feats, targets=targets,
             folds=folds, task=task, n_classes=n_classes,
         ))
+        problem.walks = walks
+        return problem
 
     @property
     def n_nodes(self) -> int:

@@ -108,6 +108,12 @@ class MeanAggregator(_TwoBranch):
         del x_self
         return x_neigh.mean(dim=1)
 
+    def combine_projected(self, h_self: torch.Tensor, h_neigh: torch.Tensor) -> torch.Tensor:
+        """Finish from pre-projected self rows and the mean of pre-projected
+        neighbor rows (projection ∘ mean == mean ∘ projection; the fused
+        first layer, ``nn/fused.py``, hands over the mean already taken)."""
+        return self._finish(h_self, h_neigh)
+
 
 class PoolAggregator(_TwoBranch):
     """Per-neighbor ``relu(mlp(x))`` of width ``hidden_dim``, then an

@@ -16,6 +16,11 @@ once (``_deepest_summary``); the JAX package gathers and summarises it in
 root-aligned chunks, which gives the same values. ``lstm`` is fused only
 under ``fuse_last="all"``.
 
+With ``fuse_first_layer`` (mean aggregator, identity prep, a feature table)
+the first pass projects the whole table once per branch and gathers in
+output space (``nn/fused.py::project_gather``, whose backward computes
+``dW`` from the raw rows); the later layers run as usual.
+
 The feature table may be int8 (``data/quantize.py::QuantizedFeats``): every
 level's rows then arrive dequantized in the compute dtype through
 ``row_gather``, and the fused fanout mean is the int8 kernel's
@@ -32,6 +37,7 @@ import torch
 
 from tpu_sage_torch.nn.aggregators import aggregator_lookup
 from tpu_sage_torch.nn.dense import Dense
+from tpu_sage_torch.nn.fused import project_gather
 from tpu_sage_torch.nn.preps import prep_lookup
 from tpu_sage_torch.ops import row_gather, row_gather_fanout_mean
 from tpu_sage_torch.sample.csr import graph_sample_tree
@@ -108,6 +114,7 @@ class GSSupervised(torch.nn.Module):
         dtype: Optional[torch.dtype] = None,
         fuse_last: str = "auto",
         int8_summean: bool = True,
+        fuse_first_layer: bool = False,
     ):
         super().__init__()
         if aggregator_class not in aggregator_lookup:
@@ -122,6 +129,7 @@ class GSSupervised(torch.nn.Module):
         self.normalize = normalize
         self.fuse_last = fuse_last
         self.int8_summean = int8_summean
+        self.fuse_first_layer = fuse_first_layer
         self.prep = prep_lookup[prep_class](feat_dim, n_nodes=n_nodes,
                                             embedding_dim=embedding_dim)
         agg_cls = aggregator_lookup[aggregator_class]
@@ -153,7 +161,13 @@ class GSSupervised(torch.nn.Module):
 
     def encode(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
         """Collapse the neighborhood tree into per-root embeddings ``(B, D)``;
-        the per-level gathers happen here."""
+        the per-level gathers happen here. ``fuse_first_layer`` takes
+        precedence over ``fuse_last`` under the reference's conditions: the
+        mean aggregator, the identity prep, a feature table, a layer."""
+        if (self.fuse_first_layer and self.aggregator_class == "mean"
+                and self.prep_class == "identity" and feats is not None
+                and len(self.layer_specs) >= 1):
+            return self._encode_fused(levels, feats)
         fuse_last = self.fuses_last(levels, feats)
         gathered = [
             None if feats is None else row_gather(feats, ids)
@@ -183,6 +197,28 @@ class GSSupervised(torch.nn.Module):
         n_roots = levels[-2].shape[0]
         return self.agg_layers[0].neigh_summary(x_self_rows,
                                                 rows.reshape(n_roots, fanout, -1))
+
+    def _encode_fused(self, levels: List[torch.Tensor], feats: torch.Tensor) -> torch.Tensor:
+        """The first aggregation pass through whole-table projections. Each
+        branch's kernel enters in its ``Dense`` compute dtype, as the
+        reference's ``fc_self(eye)`` extracts it (rounded to bf16 under a
+        bf16 model), so gradients reach the ordinary ``fc_self``/``fc_neigh``
+        parameters; the neighbor levels come back as their fanout means."""
+        agg0 = self.agg_layers[0]
+        n_levels = len(levels) - 1
+        w_self = agg0.fc_self.kernel.to(agg0.fc_self.compute_dtype(feats))
+        w_neigh = agg0.fc_neigh.kernel.to(agg0.fc_neigh.compute_dtype(feats))
+        fanouts = [levels[d + 1].shape[0] // levels[d].shape[0] for d in range(n_levels)]
+        self_rows = project_gather(feats, w_self, levels[:n_levels])
+        neigh_means = project_gather(feats, w_neigh, levels[1:], fanouts)
+        h = [agg0.combine_projected(s, m) for s, m in zip(self_rows, neigh_means)]
+        for agg in self.agg_layers[1:]:
+            h = [agg(h[d], h[d + 1].reshape(h[d].shape[0], -1, h[d + 1].shape[-1]))
+                 for d in range(len(h) - 1)]
+        out = h[0]
+        if self.normalize:
+            out = _l2_normalize(out)
+        return out
 
     def encode_gathered(
         self,

@@ -177,6 +177,10 @@ class BestTracker:
             log({"resumed_best_metric": self.best})
         self.stale = 0
 
+    @property
+    def active(self) -> bool:
+        return self.patience > 0 or self.save_best
+
     def update(self, val, state) -> bool:
         if val is None:
             return False

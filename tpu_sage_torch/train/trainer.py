@@ -40,8 +40,7 @@ Graph = Union[DeviceGraph, CSRDeviceGraph]  # what the step samples from
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Flat, json-loadable run config with the reference's field names, so the
-    presets in ``configs/`` load unchanged. ``fuse_first_layer``, not
-    ported yet, is accepted here and refused by ``check_ported``; the gather-lowering
+    presets in ``configs/`` load unchanged. The gather-lowering
     and partitioned-path knobs (``gather_form``, ``gather_form_deep``,
     ``gather_chunks``, ``halo*``, ``csr_owner_select``) change no value on the
     single-device path and are ignored."""
@@ -114,10 +113,8 @@ class TrainConfig:
 
 
 def check_ported(config: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for a config that asks for a path the port
-    does not have yet, naming its ROADMAP item."""
-    if config.fuse_first_layer:
-        raise NotImplementedError("fuse_first_layer is not ported yet (ROADMAP Queue 1 item 13)")
+    """Raise ``ValueError`` for a config naming a dtype, optimizer or LR
+    schedule the port does not know."""
     if config.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"unknown compute_dtype: {config.compute_dtype!r}")
     if config.optimizer not in ("adam", "sgd"):
@@ -169,6 +166,7 @@ def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
         dtype=None if config.compute_dtype == "float32" else COMPUTE_DTYPES[config.compute_dtype],
         fuse_last=config.fuse_last,
         int8_summean=config.int8_summean,
+        fuse_first_layer=config.fuse_first_layer,
     )
 
 
