@@ -8,7 +8,7 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the eight kernels from
+2. build: compiles the CUDA sources of the nine kernels from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
@@ -99,7 +99,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    feature-only probe and chance, not gated); the CLI with
    ``--unsupervised`` and a checkpoint, the export of its f16 embeddings,
    and the CLI with ``--fuse-first-layer``;
-10. prints each phase's wall time and the kernels line (the off-path cases
+10. partitioned training over torch.distributed at the width of
+   ``configs/ogbn_products_dist.json`` (mean, identity, (25, 10), (128,
+   128), batch 1024, bf16) on ``bench_store()``: (a) the owner-side kernels
+   at 4 owners' shapes (the owner-masked fanout mean over the deepest
+   level's 256,000 ids for each owner, bf16 and int8, bitwise against its
+   plain version, the partials' sum against one fanout mean; an owner's
+   ``gather_rows(oob="zero")`` answers to 4·q ids; ``select_columns`` on the
+   exchanged rows) and the world-1 launch, timed; (c) at world 1 (an NCCL
+   group of one rank in this process) one partitioned step's loss and
+   gradients against the single-device step on the same levels; (b) one
+   spawned NCCL rank per visible card runs DIST_STEPS steps each of the
+   exact, ring, pipelined and bucketed exchanges and of CSR and int8
+   shards, launches per step exact, with a profile, then the sampled and
+   exact evaluations (the exact pass against the single-device one) and the
+   replicas' fingerprints; (d) ``tpu_sage_torch.cli.main --partitioned``
+   with the preset for 1 epoch with a checkpoint, resumed to 2, and
+   ``tpu_sage_torch.export.main --partitioned`` against the single-device
+   export;
+11. prints each phase's wall time and the kernels line (the off-path cases
    among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
@@ -152,6 +170,18 @@ UNSUP_STEPS, UNSUP_VARIANT_STEPS, FUSED_STEPS = 20, 5, 20
 # accuracies only: a logistic probe on the raw features, and chance
 FEATURE_ONLY_PROBE, CHANCE = 0.12, 0.024
 
+# phase 10: partitioned training at configs/ogbn_products_dist.json's width
+# (mean, identity, (25, 10), (128, 128), batch 1024, bf16, halo measured) on
+# bench_store; the kernels at the shapes of 4 owners
+DIST_CONFIG = "configs/ogbn_products_dist.json"
+DIST_BATCH, DIST_OWNERS = 1024, 4
+DIST_STEPS, DIST_WARMUP, DIST_PROFILE = 20, 3, 5
+DIST_MODES = (("exact", {"halo": "exact"}, False), ("ring", {"halo": "ring"}, False),
+              ("pipelined", {"halo": "pipelined"}, False),
+              ("bucketed", {"halo": "bucketed"}, False), ("csr", {"halo": "exact"}, True),
+              ("int8", {"halo": "exact", "feature_int8": True}, False))
+OWNED_TOL = 1e-5  # x max|mean|: 4 owners' partial means summed against one fanout mean
+
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
 PEAKS = {
@@ -178,6 +208,10 @@ SOURCES = {
     "sample_hop_csr": ("tpu_sage_torch/kernels/csrc/select.cu",
                        "tpu_sage/kernels/select.py:29 in the CSR hops of "
                        "tpu_sage/sample/csr.py:67,130"),
+    "gather_fanout_mean_owned": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
+                                 "tpu_sage/kernels/gather_mean.py:93 with the owner mask of "
+                                 "tpu_sage/dist/halo.py:229-240 (dist_gather_fanout_mean, "
+                                 "XLA in JAX)"),
 }
 
 
@@ -198,7 +232,7 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=Fa
     if fuse_first and agg == "mean" and prep == "identity":
         return {"select_columns": 0, "gather_rows": 6, "gather_rows_blockspec": 0,
                 "gather_fanout_mean": 2, "mean_project": 1, "gather_fanout_mean_int8": 0,
-                **hops}
+                "gather_fanout_mean_owned": 0, **hops}
     fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
     summary_kernel = fused and agg in ("mean", "gcn")
     mean_project = 0 if agg != "mean" else 2 if fused else 3
@@ -207,7 +241,28 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=Fa
             "gather_fanout_mean": int(summary_kernel and not int8),
             "mean_project": mean_project,
             "gather_fanout_mean_int8": int(summary_kernel and int8),
-            "sample_hop_csr": 2 if csr else 0}
+            "sample_hop_csr": 2 if csr else 0, "gather_fanout_mean_owned": 0}
+
+
+def dist_per_step(mode, world):
+    """Kernel launches of one partitioned step (mean, identity) on each of
+    ``world`` ranks: per exchange, the owner's answers (``gather_rows``;
+    the ring fills once per rank it passes, the bucketed exchange gathers
+    the local rows, the owner's answers and the returned slots); the two
+    hops' column picks (``select_columns``; on CSR shards at the owner,
+    after four gathers each: degrees, indptr, the window pair); the deepest
+    level's pre-reduced means at the owner (``gather_fanout_mean_owned``,
+    once per rank a ring passes; bucketed routing gathers the rows and
+    means them at the requester); ``mean_project`` for the two unreduced
+    pairings."""
+    per = {"exact": 1, "ring": world, "pipelined": world, "bucketed": 3, "csr": 1,
+           "int8": 1}[mode]
+    hops = 8 if mode == "csr" else 2 * per
+    deepest_rows = per if mode == "bucketed" else 0
+    return {"select_columns": 2, "sample_hop": 0, "gather_rows": hops + 2 * per + deepest_rows,
+            "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
+            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0,
+            "gather_fanout_mean_owned": 0 if mode == "bucketed" else per}
 
 
 PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
@@ -1550,7 +1605,7 @@ def unsup_per_step(csr=False, corpus=False):
     return {"select_columns": 0, "sample_hop": 0 if csr else hops,
             "gather_rows": 2 + int(corpus), "gather_rows_blockspec": 0,
             "gather_fanout_mean": 1, "mean_project": 2, "gather_fanout_mean_int8": 0,
-            "sample_hop_csr": hops if csr else 0}
+            "sample_hop_csr": hops if csr else 0, "gather_fanout_mean_owned": 0}
 
 
 def unsup_config(**kw):
@@ -1972,6 +2027,360 @@ def phase_unsupervised(torch, np, problem, graph, smi, peaks, main_ms):
     log(json.dumps({"unsupervised": {"runs": runs}}))
     return results, by_path
 
+def dist_kernel_cases(torch, graph, peaks):
+    """Phase 10 (a): the partitioned step's owner-side kernels at the width
+    of configs/ogbn_products_dist.json, split among DIST_OWNERS owners of
+    bench_store's bf16 table (rank s owns rows [s*m, (s+1)*m)): the
+    owner-masked fanout mean over the deepest level's 256,000 ids (25,600
+    roots x 10) for each owner, bitwise against its plain version, the 4
+    partials' sum against the single-device gather_fanout_mean, again on an
+    int8 table; gather_rows(oob="zero") as an owner answers 4*q ids (level
+    1's features, hop 2's adjacency || degree rows); select_columns at the
+    exchanged rows' shape. The world-1 step's own launch (the whole table
+    as one owner) is the case that counts into the kernels line."""
+    from tpu_sage_torch.kernels import gather, gather_mean, select
+    from tpu_sage_torch.sample.sampler import pack_adjacency, sample_tree
+
+    bw = peaks[0]
+    feats, adj, deg = graph.feats, graph.adj, graph.degrees
+    n, d = feats.shape
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    roots = torch.randperm(n, generator=gen, device="cuda")[:DIST_BATCH].int()
+    levels = sample_tree(adj, deg, roots, FANOUTS, generator=gen)
+    ids, f = levels[2], FANOUTS[1]
+    r = ids.shape[0] // f
+    m = -(-n // DIST_OWNERS)
+    cases = []
+
+    def distinct(x):
+        return int(torch.unique(x).numel())
+
+    q8 = torch.clamp(torch.round(feats.float() / (feats.float().abs().amax(0) / 127)),
+                     -127, 127).to(torch.int8)
+    for label, table in (("bf16", feats), ("int8", q8)):
+        partials = []
+        for s_, lo in enumerate(range(0, n, m)):
+            local = table[lo:lo + m]
+            own = (ids >= lo) & (ids < lo + local.shape[0])
+            cases.append(kernel_case(
+                "gather_fanout_mean_owned",
+                f"{label} owner {s_}/{DIST_OWNERS} {tuple(local.shape)} ids={ids.shape[0]} F={f}",
+                lambda t=local, lo=lo: gather_mean.gather_fanout_mean_owned(t, ids, f, lo),
+                lambda t=local, lo=lo: gather_mean.gather_fanout_mean_owned_reference(
+                    t, ids, f, lo),
+                lambda t=local, lo=lo, own=own: torch.where(
+                    own[:, None], t[(ids.long() - lo).clamp(0, t.shape[0] - 1)], 0
+                ).float().view(r, f, d).mean(1),
+                4 * ids.shape[0] + distinct(ids[own]) * d * table.element_size() + r * d * 4,
+                weight=0))
+            partials.append(gather_mean.gather_fanout_mean_owned(local, ids, f, lo))
+        total = partials[0]
+        for p in partials[1:]:
+            total = total + p
+        if label == "bf16":
+            want = gather_mean.gather_fanout_mean(table, ids, f)
+        else:
+            want = table[ids.long()].float().view(r, f, d).sum(1) * gather_mean.reciprocal(f)
+        err = (total - want).abs().max().item()
+        if not err <= OWNED_TOL * want.abs().max().item():
+            raise AssertionError(f"{label}: {DIST_OWNERS} owners' partial means sum to "
+                                 f"max abs err {err} from one fanout mean")
+        log(f"  {label}: {DIST_OWNERS} owners' partial means against one fanout mean: max abs "
+            f"err {err:.3g} (limit {OWNED_TOL} x {want.abs().max().item():.4g})")
+    cases.append(kernel_case(
+        "gather_fanout_mean_owned", f"bf16 world 1, one owner {tuple(feats.shape)} "
+        f"ids={ids.shape[0]} F={f}",
+        lambda: gather_mean.gather_fanout_mean_owned(feats, ids, f, 0),
+        lambda: gather_mean.gather_fanout_mean_owned_reference(feats, ids, f, 0),
+        lambda: feats[ids.long()].float().view(r, f, d).mean(1),
+        4 * ids.shape[0] + distinct(ids) * d * 2 + r * d * 4, weight=1))
+
+    # an owner's answers to every rank's queries (4q ids, the others' zero
+    # rows): level 1's features (4 x 6,400 ids of 1,204 bytes) and hop 2's
+    # adjacency || degree rows (4 x 6,400 of 516 bytes), owner 1
+    packed = pack_adjacency(adj, deg)
+    q = levels[1].shape[0] // DIST_OWNERS
+    all_ids = levels[1][:DIST_OWNERS * q]
+    for name, table in (("feats bf16", feats), ("adjacency || degree int32", packed)):
+        local = table[m:2 * m]
+        lids = (all_ids - m).contiguous()
+        own = (lids >= 0) & (lids < m)
+        row = table.shape[1] * table.element_size()
+        cases.append(kernel_case(
+            "gather_rows", f"owner 1/{DIST_OWNERS} answers {name} {tuple(local.shape)} "
+            f"q={lids.shape[0]} oob=zero",
+            lambda t=local: gather.gather_rows(t, lids, "zero"),
+            lambda t=local: gather.gather_rows_reference(t, lids, "zero"),
+            lambda t=local: torch.where(own[:, None], t[lids.long().clamp(0, m - 1)], 0),
+            4 * lids.shape[0] + distinct(lids[own]) * row + lids.shape[0] * row, weight=0))
+
+    # the requester's column pick on the exchanged adjacency || degree rows:
+    # hop 1 (1,024 x 25) and hop 2 (25,600 x 10), a view of row stride 129
+    for hop_ids, fo in ((levels[0], FANOUTS[0]), (levels[1], FANOUTS[1])):
+        rows = packed[hop_ids.long()]
+        u = torch.rand((hop_ids.shape[0], fo), generator=gen, device="cuda")
+        cols = torch.minimum((u * rows[:, -1:].clamp_min(1).float()).int(),
+                             rows[:, -1:].clamp_min(1) - 1).contiguous()
+        view = rows[:, :-1]
+        sectors = distinct((torch.arange(view.shape[0], device="cuda")[:, None]
+                            * view.stride(0) + cols.long()) // 8)
+        cases.append(kernel_case(
+            "select_columns", f"exchanged rows int32 {tuple(view.shape)} (row stride "
+            f"{view.stride(0)}), cols {tuple(cols.shape)}",
+            lambda v=view, c=cols: select.select_columns(v, c),
+            lambda v=view, c=cols: select.select_columns_reference(v, c),
+            lambda v=view, c=cols.long(): torch.gather(v, 1, c),
+            32 * sectors + 8 * cols.numel(), weight=0))
+    del q8
+    return time_cases(torch, cases, bw), levels
+
+
+def dist_world1_equivalence(torch, np, store, graph, levels):
+    """Phase 10 (c): at world 1 (an NCCL group of one rank in this process)
+    the partitioned step's loss and gradients on injected levels equal the
+    single-device trainer's from the same parameters, within phase 4's bf16
+    limit (3e-2 of each one's scale)."""
+    from tpu_sage_torch.dist import mesh
+    from tpu_sage_torch.dist.train import PartitionedTrainer
+    from tpu_sage_torch.train.trainer import TrainConfig, Trainer, build_model
+
+    cfg = TrainConfig.from_json(DIST_CONFIG).replace(halo="exact")
+    spe = len(store.folds["train"]) // cfg.batch_size
+
+    def partitioned():
+        tr, g, fold_ids, fold_w = PartitionedTrainer.from_store(store, cfg, "cuda:0")
+        st = tr.init_state()
+        st, m = tr.train_step(st, g, fold_ids, fold_w, levels=levels)
+        return float(m["loss"]), {k: p.grad.float() for k, p in tr.model.named_parameters()}
+
+    loss_p, grads_p = mesh.run_in_process(partitioned, "cuda")
+    model = build_model(cfg, store.n_nodes, store.n_classes, store.feat_dim)
+    trainer = Trainer(model, cfg, steps_per_epoch=spe, task=store.task)
+    state = trainer.init_state(graph)
+    state, m = trainer.train_step(state, graph, levels[0], graph.targets[levels[0].long()],
+                                  levels=levels)
+    loss_s = float(m["loss"])
+    errs = {k: ((grads_p[k] - p.grad.float()).abs().max() / p.grad.float().abs().max()).item()
+            for k, p in model.named_parameters()}
+    if not (abs(loss_p - loss_s) <= SAMPLED_TOL * abs(loss_s)
+            and max(errs.values()) <= SAMPLED_TOL):
+        raise AssertionError(f"world-1 partitioned step: loss {loss_p} vs {loss_s}, gradient "
+                             f"errors (share of scale) {errs}")
+    log(f"  world 1: partitioned step loss {loss_p:.6f} vs single device {loss_s:.6f}; "
+        f"gradients within {max(errs.values()):.3g} of scale (limit {SAMPLED_TOL})")
+
+
+def dist_rank(out_dir):
+    """Phase 10 (b), run by every spawned rank: DIST_STEPS timed steps of each
+    of DIST_MODES at configs/ogbn_products_dist.json's configuration on
+    bench_store (cached by phase 2), the launch counts from 0 checked per
+    step, a profile, then (exact mode) the sampled and exact evaluations,
+    the exact pass against the single-device one on rank 0, and the
+    replicas' fingerprints. Writes its records to ``out_dir/rank<r>.json``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.data.synthetic import bench_store
+    from tpu_sage_torch.dist.debug import assert_replicas_equal, tree_fingerprint
+    from tpu_sage_torch.dist.halo import all_gather_rows
+    from tpu_sage_torch.dist.mesh import rank, world
+    from tpu_sage_torch.dist.train import PartitionedTrainer
+    from tpu_sage_torch.nn.full_graph import embed_all_nodes, embed_all_nodes_partitioned
+    from tpu_sage_torch.train.trainer import TrainConfig, fold_metric_np
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me, n_ranks = rank(), world()
+    device = torch.device("cuda", torch.cuda.current_device())
+    store = bench_store()
+    base = TrainConfig.from_json(DIST_CONFIG)
+    recs = {}
+    for label, kw, csr in DIST_MODES:
+        cfg = base.replace(**kw)
+        t0 = time.perf_counter()
+        tr, graph, fold_ids, fold_w = PartitionedTrainer.from_store(store, cfg, device, csr=csr)
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        for _ in range(DIST_WARMUP):
+            state, _ = tr.train_step(state, graph, fold_ids, fold_w)
+        torch.cuda.synchronize()
+        dist.barrier()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(DIST_STEPS):
+            state, m = tr.train_step(state, graph, fold_ids, fold_w)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        want = dist_per_step(label, n_ranks)
+        if counts != {k: v * DIST_STEPS for k, v in want.items()}:
+            raise AssertionError(f"partitioned {label}: launches in {DIST_STEPS} steps "
+                                 f"{counts}, expected {want} per step")
+        losses = torch.stack(losses).float().cpu().numpy()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"partitioned {label}: losses {losses}")
+        kern, launches = device_profile(
+            torch, lambda: tr.train_step(state, graph, fold_ids, fold_w), DIST_PROFILE)
+        device_ms = sum(k[1] for k in kern)
+        ms = dt / DIST_STEPS * 1e3
+        rec = {"mode": label, "halo": tr.halo_mode, "csr": csr, "world": n_ranks,
+               "setup_s": setup_s,
+               "feature_int8": cfg.feature_int8, "batch": cfg.batch_size,
+               "batch_per_rank": tr.batch_per_shard, "steps": DIST_STEPS, "ms_per_step": ms,
+               "edges_per_s": cfg.batch_size * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
+               * DIST_STEPS / dt,
+               "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+               "launches": counts, "launches_per_step": want,
+               "device_kernel_ms_per_step": device_ms,
+               "device_busy_share": device_ms / ms if device_ms else None,
+               "kernel_launches_per_step": launches,
+               "top_kernels_ms_per_step": [[k[0][:80], k[1], k[2]] for k in kern[:8]]}
+        if label == "exact":
+            rec["val_sampled"] = tr.evaluate(state, store, "val", seed=cfg.seed + 1)
+            t0 = time.perf_counter()
+            rec["val_exact"] = tr.evaluate_exact(state, store, "val")
+            rec["exact_eval_s"] = time.perf_counter() - t0
+            g_full, _ = tr._full_graph_shard(store)
+            sharded = all_gather_rows(embed_all_nodes_partitioned(tr.model, g_full,
+                                                                  with_head=True))
+            sharded = sharded[:store.n_nodes]
+            if me == 0:
+                single_graph = store.to_device(train=False, dtype=torch.bfloat16, device=device)
+                single = embed_all_nodes(tr.model, single_graph, with_head=True)
+                err = (sharded - single).abs().max().item()
+                scale = single.abs().max().item()
+                ids = store.folds["val"]
+                single_val = fold_metric_np(store.task, single.cpu().numpy()[ids],
+                                            store.targets[ids])
+                if not (err <= EXACT_TOL["bfloat16"] * scale
+                        and abs(single_val - rec["val_exact"]) <= 1e-3):
+                    raise AssertionError(f"partitioned exact pass: max abs err {err} against "
+                                         f"the single-device pass (scale {scale}); val "
+                                         f"{rec['val_exact']} vs {single_val}")
+                rec.update(exact_vs_single_max_abs_err=err, exact_scale=scale,
+                           val_exact_single_device=single_val)
+                del single_graph, single
+            assert_replicas_equal(state.model, "params")
+            assert_replicas_equal(state.optimizer, "optimizer")
+            fps = [None] * n_ranks
+            dist.all_gather_object(fps, [float(tree_fingerprint(state.model)),
+                                         float(tree_fingerprint(state.optimizer))])
+            rec["fingerprints"] = fps
+        recs[label] = rec
+        del tr, graph, state
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def dist_entry_points(torch, np, tmp):
+    """Phase 10 (d): ``tpu_sage_torch.cli.main --partitioned`` with
+    configs/ogbn_products_dist.json on the 232,965-node store for 1 epoch
+    with a checkpoint, resumed to 2; ``tpu_sage_torch.export.main
+    --partitioned`` from that checkpoint against the single-device export
+    (f32 logits within EXACT_TOL). Returns the launch counts of each."""
+    import os
+
+    from tpu_sage_torch import cli, export, kernels
+
+    ck, logp = os.path.join(tmp, "dist.npz"), os.path.join(tmp, "dist.jsonl")
+    argv = ["--config", DIST_CONFIG, "--synthetic", "reddit-shaped", "--synthetic-nodes",
+            str(SERVING_NODES), "--partitioned", "--checkpoint-path", ck, "--checkpoint-every",
+            "1", "--log-path", logp]
+    by_path = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for epochs in (1, 2):
+        if cli.main(argv + ["--epochs", str(epochs)]) != 0:
+            raise AssertionError(f"the partitioned CLI run to {epochs} epochs failed")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    by_path["dist_cli"] = kernels.launch_counts()
+    with open(logp) as f:
+        recs = [json.loads(line) for line in f]
+    resumed = [r for r in recs if "resumed_from" in r]
+    epochs = [r for r in recs if "elapsed" in r]
+    heads = [r for r in recs if "n_shards" in r and "epoch" not in r]
+    if (len(resumed) != 1 or resumed[0]["start_epoch"] != 1
+            or [r["epoch"] for r in epochs] != [0, 1]
+            or not all(np.isfinite(r["train_loss"]) and 0 <= r["val_metric"] <= 1
+                       for r in epochs)
+            or heads[0]["n_shards"] != torch.cuda.device_count()):
+        raise AssertionError(f"partitioned CLI records {recs}")
+    if by_path["dist_cli"]["gather_fanout_mean_owned"] == 0:
+        raise AssertionError(f"partitioned CLI launches {by_path['dist_cli']}")
+    summary = [(r["epoch"], round(r["train_loss"], 4), round(r["val_metric"], 4))
+               for r in epochs]
+    log(f"  partitioned CLI: {heads[0]}, epochs (epoch, loss, val) {summary}, resumed at "
+        f"epoch 1, {fit_s:.1f} s; launches {by_path['dist_cli']}")
+
+    outs, walls = {}, {}
+    for label, extra in (("dist_export", ["--partitioned"]), ("single_export", [])):
+        out = os.path.join(tmp, f"{label}.npy")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if export.main(["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES),
+                        "--checkpoint", ck, "--out", out, "--checkpoint-config",
+                        "--logits"] + extra) != 0:
+            raise AssertionError(f"{label} failed")
+        walls[label] = time.perf_counter() - t0
+        by_path[label] = kernels.launch_counts()
+        outs[label] = np.load(out)
+    a, b = outs["dist_export"], outs["single_export"]
+    err = float(np.abs(a - b).max())
+    if a.shape != (SERVING_NODES, 41) or not np.isfinite(a).all() or \
+            err > EXACT_TOL["float32"] * float(np.abs(b).max()):
+        raise AssertionError(f"partitioned export {a.shape}: max abs err {err} against the "
+                             f"single-device export")
+    log(f"  export --partitioned {a.shape} in {walls['dist_export']:.2f} s (single device "
+        f"{walls['single_export']:.2f} s): max abs err {err:.3g}; launches "
+        f"{by_path['dist_export']}")
+    return by_path
+
+
+def phase_dist(torch, np, store, graph, smi, peaks):
+    """Phase 10: partitioned training. (a) the owner-side kernels at 4
+    owners' shapes; (c) world-1 equivalence with the single-device step;
+    (b) world = the visible cards' NCCL ranks, spawned, DIST_STEPS steps of
+    every flat halo mode and of CSR and int8 shards, evaluations, replica
+    fingerprints; (d) the CLI and the exporter with ``--partitioned``.
+    Returns the timed cases and the launch counts by path."""
+    import os
+    import tempfile
+
+    from tpu_sage_torch.dist import mesh
+
+    results, levels = dist_kernel_cases(torch, graph, peaks)
+    dist_world1_equivalence(torch, np, store, graph, levels)
+    world = torch.cuda.device_count()
+    log(f"  spawning {world} NCCL rank(s), one per visible card")
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mesh.spawn(dist_rank, world, "cuda", (tmp,))
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for label, rec in ranks[0].items():
+            by_path[f"dist_{label}"] = rec["launches"]
+            log(f"  {label}: {rec['ms_per_step']:.3f} ms/step, device "
+                f"{rec['device_kernel_ms_per_step']:.3f} ms/step, loss {rec['loss_first']:.4f} "
+                f"-> {rec['loss_last']:.4f}, launches per step {rec['launches_per_step']}")
+        log(json.dumps({"partitioned_runs": list(ranks[0].values()), "spawn_wall_s": spawn_s}))
+        log(f"  replica fingerprints (params, optimizer) by rank: "
+            f"{ranks[0]['exact']['fingerprints']}")
+        by_path.update(dist_entry_points(torch, np, tmp))
+    log(smi)
+    return results, by_path
+
 
 def main() -> int:
     import torch
@@ -2021,7 +2430,7 @@ def main() -> int:
         log(f"  {src}.cu -Xptxas -v: {'; '.join(ptxas_report(_build.library_path(src)[1] + '.log'))}")
 
     t0 = time.perf_counter()
-    store = bench_store(cache_dir="0")
+    store = bench_store()  # cached for phase 10's spawned ranks
     problem = NodeProblem(store)
     graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda")
     log(f"  bench_store {store.feats.shape} built and uploaded in {time.perf_counter() - t0:.1f} s")
@@ -2060,6 +2469,11 @@ def main() -> int:
                                                     main_ms)
     results += unsup_results
     by_path.update(unsup_paths)
+
+    phase("phase 10: partitioned training (torch.distributed)")
+    dist_results, dist_paths = phase_dist(torch, np, store, graph, smi, peaks)
+    results += dist_results
+    by_path.update(dist_paths)
     phase(None)
 
     kernels_line = []
@@ -2080,6 +2494,8 @@ def main() -> int:
             "launches_per_step_int8_csr": STORAGE_PER_STEP[name_k],
             "launches_per_step_unsupervised": unsup_per_step()[name_k],
             "launches_per_step_fused_first_layer": FUSED_PER_STEP[name_k],
+            "launches_per_step_partitioned": dist_per_step("exact",
+                                                           torch.cuda.device_count())[name_k],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)

@@ -1,7 +1,8 @@
 """The port's CLI, ``python -m tpu_sage_torch.cli`` (mirroring
-``tests/test_cli.py``): in-process ``main()`` with ``--device cpu``; flags
-of paths not ported yet (the partitioned path) exit 2 naming their ROADMAP
-item."""
+``tests/test_cli.py``): in-process ``main()`` with ``--device cpu``; the
+partitioned flags run at world 1 (one CPU rank in this process); paths not
+ported yet (``--partitioned --unsupervised``, ``--halo hier2d``) exit 2
+naming their ROADMAP item."""
 
 import json
 import os
@@ -144,22 +145,49 @@ def test_parse_ints():
     assert args.device == "cuda"
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--partitioned"], 14), (["--halo", "exact"], 14), (["--halo-capacity-factor", "2"], 14),
-    (["--halo-chunks", "4"], 14), (["--halo-measure-steps", "3"], 14),
-    (["--reorder", "degree"], 14),
-], ids=lambda v: v[0] if isinstance(v, list) else str(v))
-def test_unported_flag_exits_2(capsys, flag, item):
-    assert main(TINY + ["--epochs", "1"] + flag) == 2
-    assert f"{flag[0]} is not ported yet (ROADMAP Queue 1 item {item})" in \
-        capsys.readouterr().err
+@pytest.mark.parametrize("flag,config", [
+    (["--partitioned"], {}),
+    (["--halo", "ring"], {"halo": "ring"}),
+    (["--halo", "bucketed", "--halo-capacity-factor", "0.5"], {"halo_capacity_factor": 0.5}),
+    (["--halo-chunks", "4"], {"halo_chunks": 4}),
+    (["--halo", "measured", "--halo-measure-steps", "3"], {"halo_measure_steps": 3}),
+    (["--reorder", "degree"], {}),
+], ids=["partitioned", "halo", "halo-capacity-factor", "halo-chunks", "halo-measure-steps",
+        "reorder"])
+def test_partitioned_flag_runs_at_world_1(capsys, flag, config):
+    """Each partitioned flag exited 2 until ROADMAP Queue 1 item 14's
+    supervised slice; with ``--partitioned --device cpu`` it now trains one
+    rank in this process: the flag reaches the config, the run logs one
+    shard and the halo mode it resolved (``measured`` races nothing at one
+    shard), a finite loss, the bucketed overflow count, the reorder line."""
+    argv = TINY + ["--epochs", "1", "--partitioned"] + [f for f in flag if f != "--partitioned"]
+    assert main(argv) == 0
+    recs = _capture(capsys)
+    for k, v in config.items():
+        assert recs[0]["config"][k] == v
+    head = next(r for r in recs if "n_shards" in r and "epoch" not in r)
+    assert head["n_shards"] == 1
+    assert head["halo"] == {"ring": "ring", "bucketed": "bucketed"}.get(
+        flag[1] if len(flag) > 1 else "", "exact")
+    epochs = [r for r in recs if "train_loss" in r]
+    assert len(epochs) == 1 and np.isfinite(epochs[0]["train_loss"])
+    assert ("halo_overflow" in epochs[0]) == (head["halo"] == "bucketed")
+    if flag[0] == "--reorder":
+        assert any(r.get("reorder") == "degree" and r["edge_cut_after"] == 0.0 for r in recs)
 
 
 def test_partitioned_unsupervised_exits_2_naming_item_14(capsys):
     """The partitioned unsupervised loop belongs to item 14, whatever item
     ported the single-device one."""
     assert main(TINY + ["--epochs", "1", "--partitioned", "--unsupervised"]) == 2
-    assert "--partitioned is not ported yet (ROADMAP Queue 1 item 14)" in capsys.readouterr().err
+    assert "--partitioned --unsupervised is not ported yet (ROADMAP Queue 1 item 14)" in \
+        capsys.readouterr().err
+
+
+def test_halo_hier2d_exits_2_naming_item_14(capsys):
+    """The hierarchical exchange over a 2-D (host, chip) layout is not ported."""
+    assert main(TINY + ["--epochs", "1", "--partitioned", "--halo", "hier2d"]) == 2
+    assert "--halo hier2d is not ported yet (ROADMAP Queue 1 item 14)" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", ["--unsupervised", "--fuse-first-layer"])

@@ -1,0 +1,78 @@
+"""The port's data-parallel trainer (tpu_sage_torch/dist/data_parallel.py) at
+2 gloo ranks against the single-device step on the whole batch: the same
+loss, gradients and updated parameters for the same injected tree and
+initial parameters. One group of ranks
+(tests/torch_dist_workers.py::dp_checks).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tests import torch_dist_workers as W
+from tpu_sage_torch.data.synthetic import sbm_problem
+from tpu_sage_torch.dist import mesh as tmesh
+from tpu_sage_torch.dist.data_parallel import DataParallelTrainer
+from tpu_sage_torch.nn.params import flax_key
+from tpu_sage_torch.train.trainer import Trainer, build_model
+
+WORLD = 2
+
+
+def _levels():
+    problem = sbm_problem(n_nodes=300, n_classes=4, feat_dim=16, seed=2)
+    rng = np.random.default_rng(4)
+    b, (f1, f2) = W.DP_BATCH, W.STEP_FANOUTS
+    return problem, [rng.choice(problem.folds["train"], b).astype(np.int32),
+                     rng.integers(0, 300, b * f1).astype(np.int32),
+                     rng.integers(0, 300, b * f1 * f2).astype(np.int32)]
+
+
+@pytest.fixture(scope="module")
+def port(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dp")
+    _, levels = _levels()
+    np.savez(out / "inputs.npz", **{f"level{i}": l for i, l in enumerate(levels)})
+    tmesh.spawn(W.dp_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_data_parallel_step_matches_the_single_device_step(port, dtype):
+    """f32: loss within 1e-6, gradients within 1e-5 of scale (the halves'
+    sums in another order); bf16: loss within 1e-3, gradients within the
+    single-device bf16 tests' 1.5e-2 of scale; the updated parameters
+    within 1e-5 where the gradient's sign is sure (Adam's first step moves
+    each by about ±lr, so a bf16 gradient within its tolerance of 0 may move
+    its parameter either way)."""
+    problem, levels = _levels()
+    cfg = W.step_config("mean", dtype, batch_size=W.DP_BATCH)
+    model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+    tr = Trainer(model, cfg, steps_per_epoch=4, task=problem.task)
+    graph = problem.device_graph(train=True, dtype=getattr(torch, dtype), device="cpu")
+    state = tr.init_state(graph)
+    ids = torch.from_numpy(levels[0])
+    state, m = tr.train_step(state, graph, ids, graph.targets[ids.long()],
+                             levels=[torch.from_numpy(l) for l in levels])
+    ltol, gtol = (1e-6, 1e-5) if dtype == "float32" else (1e-3, 1.5e-2)
+    for r in range(WORLD):
+        np.testing.assert_allclose(float(port[r][f"{dtype}/loss"]), float(m["loss"]), rtol=ltol)
+        for name, p in model.named_parameters():
+            k = flax_key(name)
+            want = p.grad.numpy()
+            np.testing.assert_allclose(port[r][f"{dtype}/grad/{k}"].numpy(), want, rtol=0,
+                                       atol=gtol * np.abs(want).max(), err_msg=k)
+            np.testing.assert_array_equal(port[r][f"{dtype}/grad/{k}"],
+                                          port[0][f"{dtype}/grad/{k}"])
+            sure = np.abs(want) > gtol * np.abs(want).max()
+            np.testing.assert_allclose(port[r][f"{dtype}/param/{k}"].numpy()[sure],
+                                       p.detach().numpy()[sure], rtol=0, atol=1e-5, err_msg=k)
+    assert np.isfinite(float(port[0][f"{dtype}/epoch_loss"]))
+
+
+def test_model_axis_is_not_ported_yet():
+    problem, _ = _levels()
+    cfg = W.step_config("mean", "float32")
+    model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
+    with pytest.raises(ValueError, match="ROADMAP Queue 1 item 14"):
+        DataParallelTrainer(model, cfg, steps_per_epoch=1, model_axis="model")

@@ -105,7 +105,23 @@ def test_missing_checkpoint_clean_error(tmp_path):
         assert "checkpoint not found" in str(ei.value)
 
 
-@pytest.mark.parametrize("flag", [["--partitioned"], ["--coordinator", "localhost:1234"],
+@pytest.mark.parametrize("kind", [[], ["--logits"]], ids=["embeddings", "logits"])
+def test_partitioned_export_matches_single_device(checkpoints, capsys, kind):
+    """``--partitioned`` exited 2 until ROADMAP Queue 1 item 14's supervised
+    slice; at world 1 on the CPU it runs the node-sharded exact pass and
+    writes what the single-device export writes (the exchanged rows are the
+    table's rows, the chunks the same)."""
+    tmp, ckpts = checkpoints
+    common = GRAPH + ["--checkpoint", str(ckpts["port"]), "--chunk", "64",
+                      "--checkpoint-config", "--device", "cpu"] + kind
+    assert port_export(common + ["--out", str(tmp / "single.npy")]) == 0
+    assert port_export(common + ["--out", str(tmp / "sharded.npy"), "--partitioned"]) == 0
+    metas = [json.loads(l) for l in capsys.readouterr().out.strip().splitlines()[-2:]]
+    assert metas[0]["shape"] == metas[1]["shape"] and metas[1]["process"] == 0
+    np.testing.assert_array_equal(np.load(tmp / "sharded.npy"), np.load(tmp / "single.npy"))
+
+
+@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"], ["--process-id", "0"]],
                          ids=lambda f: f[0])
 def test_unported_flags_exit_2(tmp_path, capsys, flag):

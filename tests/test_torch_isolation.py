@@ -21,12 +21,15 @@ FORBIDDEN = re.compile(
 
 def test_importing_the_port_loads_no_jax_module():
     """Every module of the port (``train/unsupervised.py``, whose probe is
-    written without scikit-learn, and ``nn/fused.py`` included) imports
-    neither JAX nor the JAX package nor scikit-learn."""
+    written without scikit-learn, ``nn/fused.py`` and the multi-device
+    ``dist/`` modules included) imports neither JAX nor the JAX package nor
+    scikit-learn."""
     modules = sorted(
         "tpu_sage_torch." + os.path.relpath(p, os.path.join(REPO, "tpu_sage_torch"))[:-3]
         .replace(os.sep, ".").removesuffix(".__init__") for p in PORT_FILES)
     assert "tpu_sage_torch.train.unsupervised" in modules and "tpu_sage_torch.nn.fused" in modules
+    assert {f"tpu_sage_torch.dist.{m}" for m in ("mesh", "partition", "halo", "train",
+                                                   "data_parallel", "debug")} <= set(modules)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"

@@ -11,11 +11,14 @@ dense or int8 feature storage, and every aggregator (``mean``, ``gcn``, ``max_po
 ``lstm``) and prep (``identity``, ``linear``, ``node_embedding``) — the paths
 ``fit()`` runs — with the fused first layer (``nn/fused``); unsupervised
 training over random walks with its logistic probe
-(``train/unsupervised``); and the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
+(``train/unsupervised``); the serving path: checkpoints in the JAX package's ``.npz`` layout (``train/checkpoint``),
 exact full-graph inference (``nn/full_graph``), the exporter (``export``)
-and the CLI (``cli``). The hot functions (sampler hop, dense and CSR, column
-select, row gather, gather + fanout mean, dense and int8, mean + projection)
-are hand-written CUDA kernels for ``sm_90a`` (``kernels/csrc``), built with ``nvcc`` on first use;
+and the CLI (``cli``); and node-sharded supervised training over
+``torch.distributed`` with its halo exchange, sharded exact inference and a
+data-parallel trainer (``dist/``). The hot functions (sampler hop, dense and
+CSR, column select, row gather, gather + fanout mean, dense, int8 and
+owner-masked, mean + projection) are hand-written CUDA kernels for
+``sm_90a`` (``kernels/csrc``), built with ``nvcc`` on first use;
 on CPU tensors each wrapper runs its plain PyTorch version instead.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``

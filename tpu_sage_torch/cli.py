@@ -10,16 +10,29 @@ Usage::
     # the CPU with the kernels' plain versions
     python -m tpu_sage_torch.cli --synthetic sbm --epochs 10 --device cpu
 
+    # node-sharded training over torch.distributed: one rank per visible
+    # card, or under torchrun the ranks it launches (gloo on --device cpu)
+    python -m tpu_sage_torch.cli --config configs/ogbn_products_dist.json \\
+        --synthetic sbm --partitioned
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \\
+        -m tpu_sage_torch.cli --synthetic sbm --partitioned --device cpu
+
 The run is on the CUDA card unless ``--device cpu`` is given; without a card
 ``--device cuda`` exits 2, and nothing falls back to the CPU.
 ``--unsupervised`` trains with the NCE objective
 (``train/unsupervised.py::fit_unsupervised``, the logistic probe unless
 ``--no-eval``); ``--fuse-first-layer`` projects the feature table once per
-step (``nn/fused.py``). Flags of paths not ported yet (the partitioned
-multi-device path) exit 2 naming their ROADMAP item. ``--gather-form``,
-``--gather-form-deep`` and ``--gather-chunks`` go into the config and change
-nothing on the port. The reference's capacity advice on running out of
-device memory is not ported (ROADMAP Queue 1 item 15): the error propagates.
+step (``nn/fused.py``). ``--partitioned`` trains node-sharded
+(``dist/train.py::fit_partitioned``) with the ``--halo*`` exchange settings:
+under torchrun its environment gives the ranks; otherwise the run spawns one
+rank per visible card (start method ``spawn``; a single rank runs in this
+process), and on ``--device cpu`` runs one rank. ``--reorder`` relabels the
+nodes before partitioning, for as many shards as the run has ranks.
+``--partitioned --unsupervised`` and ``--halo hier2d`` exit 2 naming ROADMAP
+Queue 1 item 14. ``--gather-form``, ``--gather-form-deep`` and
+``--gather-chunks`` go into the config and change nothing on the port. The
+reference's capacity advice on running out of device memory is not ported
+(ROADMAP Queue 1 item 15): the error propagates.
 """
 
 from __future__ import annotations
@@ -82,14 +95,22 @@ def parse_args(argv=None):
     ap.add_argument("--val-interval", type=int, default=None,
                     help="also validate every N train batches (reference-style)")
     ap.add_argument("--partitioned", action="store_true",
-                    help="node-sharded multi-device training (not ported yet)")
+                    help="node-sharded training over torch.distributed: one rank "
+                         "per visible card (or torchrun's ranks; one on --device cpu)")
     ap.add_argument("--halo", default=None,
                     choices=["auto", "measured", "exact", "ring", "pipelined",
                              "bucketed", "hier2d"],
-                    help="halo-exchange implementation for --partitioned (not ported yet)")
-    ap.add_argument("--halo-capacity-factor", type=float, default=None)
-    ap.add_argument("--halo-chunks", type=int, default=None)
-    ap.add_argument("--halo-measure-steps", type=int, default=None)
+                    help="halo-exchange implementation for --partitioned (default "
+                         "auto = exact; 'measured' races exact/ring/pipelined at "
+                         "startup; hier2d is not ported yet)")
+    ap.add_argument("--halo-capacity-factor", type=float, default=None,
+                    help="bucketed-halo capacity factor (default 2.0)")
+    ap.add_argument("--halo-chunks", type=int, default=None,
+                    help="recorded in the config; the port does not split the "
+                         "exchange")
+    ap.add_argument("--halo-measure-steps", type=int, default=None,
+                    help="steps per timed racing epoch for --halo measured "
+                         "(default 20 on the CPU, 100 on the card)")
     ap.add_argument("--fuse-first-layer", action="store_true",
                     help="mean/identity: project the feature table once per "
                          "step and gather in output space")
@@ -115,7 +136,8 @@ def parse_args(argv=None):
                     help="store node features int8 with per-column scales "
                          "(halves the resident table and the gathered bytes)")
     ap.add_argument("--reorder", default=None, choices=["degree", "locality"],
-                    help="node reordering before partitioning (not ported yet)")
+                    help="node reordering before partitioning: 'degree' balances "
+                         "edges across shards, 'locality' co-locates communities")
     ap.add_argument("--unsupervised", action="store_true",
                     help="skip-gram negative-sampling objective over random walks")
     ap.add_argument("--walk-length", type=int, default=3)
@@ -139,15 +161,11 @@ def _parse_ints(s: str):
 
 
 def _unported_flag(args):
-    """``(flag, ROADMAP Queue 1 item)`` of the first flag given whose path is
-    not ported yet, else None."""
+    """``(flags, ROADMAP Queue 1 item)`` of the first combination given whose
+    path is not ported yet, else None."""
     for given, flag, item in (
-            (args.partitioned, "--partitioned", 14),
-            (args.halo is not None, "--halo", 14),
-            (args.halo_capacity_factor is not None, "--halo-capacity-factor", 14),
-            (args.halo_chunks is not None, "--halo-chunks", 14),
-            (args.halo_measure_steps is not None, "--halo-measure-steps", 14),
-            (args.reorder is not None, "--reorder", 14)):
+            (args.partitioned and args.unsupervised, "--partitioned --unsupervised", 14),
+            (args.halo == "hier2d", "--halo hier2d", 14)):
         if given:
             return flag, item
     return None
@@ -187,12 +205,9 @@ def main(argv=None):
     # late imports keep --help fast
     import torch
 
-    from tpu_sage_torch.data.problem import NodeProblem
-    from tpu_sage_torch.data.synthetic import synthetic_problem
     from tpu_sage_torch.nn.aggregators import aggregator_lookup
     from tpu_sage_torch.nn.preps import prep_lookup
     from tpu_sage_torch.train.lr import LRSchedule
-    from tpu_sage_torch.train.trainer import TrainConfig
 
     for name, known in (("--aggregator-class", aggregator_lookup),
                         ("--prep-class", prep_lookup)):
@@ -210,15 +225,92 @@ def main(argv=None):
         return 2
     if cuda_missing(args.device):
         return 2
+    if args.checkpoint_every > 0 and not args.checkpoint_path:
+        print("error: --checkpoint-every requires --checkpoint-path", file=sys.stderr)
+        return 2
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
+    if args.partitioned:
+        return run_ranks(_rank_main, args.device, (raw_argv,))
+    return _run(args, raw_argv)
 
+
+def run_ranks(fn, device: str, args: tuple) -> int:
+    """Run ``fn(*args)`` on every rank of a process group: torchrun's (this
+    process is one of them), else one rank per visible card spawned from
+    here (a single rank runs in this process), or one CPU rank."""
+    import torch
+
+    from tpu_sage_torch.dist import mesh
+
+    if mesh.launched_by_torchrun():
+        mesh.init_process_group(device)
+        try:
+            return fn(*args)
+        finally:
+            mesh.destroy_process_group()
+    n = torch.cuda.device_count() if device == "cuda" else 1
+    if n == 1:
+        return mesh.run_in_process(fn, device, args)
+    mesh.spawn(fn, n, device, args)
+    return 0
+
+
+def _rank_main(raw_argv) -> int:
+    """One rank of a ``--partitioned`` run, from the raw argv."""
+    return _run(parse_args(raw_argv), raw_argv)
+
+
+def _reorder(args, problem):
+    """``--reorder``: relabel the nodes for as many shards as the run has
+    ranks (one on a single device) and log the cross-shard edge fraction
+    before and after."""
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.dist.mesh import world
+    from tpu_sage_torch.dist.partition import (degree_balanced_permutation,
+                                               edge_cut_fraction, locality_permutation,
+                                               reorder_store)
+
+    st = problem.store
+    n_shards = world()
+    if args.reorder == "degree":
+        perm = degree_balanced_permutation(st.degrees, n_shards)
+    else:
+        perm = locality_permutation(st.adj, st.degrees)
+    st2 = reorder_store(st, perm)
+    _say({"reorder": args.reorder,
+          "edge_cut_before": round(edge_cut_fraction(st, n_shards), 4),
+          "edge_cut_after": round(edge_cut_fraction(st2, n_shards), 4)})
+    return NodeProblem(st2)
+
+
+def _say(rec) -> None:
+    """Print a JSON line, on the first rank only."""
+    from tpu_sage_torch.dist.mesh import rank
+
+    if rank() == 0:
+        print(json.dumps(rec), flush=True)
+
+
+def _run(args, raw_argv) -> int:
+    """Build the problem and the config, then train (on every rank of a
+    partitioned run)."""
+    from tpu_sage_torch.data.problem import NodeProblem
+    from tpu_sage_torch.data.synthetic import synthetic_problem
+    from tpu_sage_torch.dist.mesh import rank
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    fanouts = _parse_ints(args.n_train_samples)
+    val_fanouts = _parse_ints(args.n_val_samples)
+    output_dims = _parse_ints(args.output_dims)
     if args.synthetic:
         problem = synthetic_problem(args.synthetic, args.synthetic_nodes,
                                     args.synthetic_classes, args.synthetic_feat_dim,
                                     seed=args.seed, task=args.synthetic_task)
     else:
         problem = NodeProblem.from_h5(args.problem_path)
+    if args.reorder:
+        problem = _reorder(args, problem)
 
     flag_values = {
         "aggregator_class": args.aggregator_class,
@@ -243,7 +335,12 @@ def main(argv=None):
                                ("gather_chunks", args.gather_chunks),
                                ("fuse_last", args.fuse_last),
                                ("exact_val_every", args.exact_val_every),
-                               ("patience", args.patience)) if v is not None}
+                               ("patience", args.patience),
+                               ("halo", args.halo),
+                               ("halo_capacity_factor", args.halo_capacity_factor),
+                               ("halo_chunks", args.halo_chunks),
+                               ("halo_measure_steps", args.halo_measure_steps))
+             if v is not None}
     if args.exact_val or args.exact_val_every is not None:
         given["exact_val"] = True
     if args.save_best:
@@ -269,17 +366,13 @@ def main(argv=None):
         config = TrainConfig.from_json(args.config).replace(**overrides, **given)
     else:
         config = TrainConfig(**flag_values, **given)
-    print(json.dumps({
+    _say({
         "task": problem.task, "n_nodes": problem.n_nodes,
         "feat_dim": problem.feats_dim, "n_classes": problem.n_classes,
         "config": {k: (list(v) if isinstance(v, tuple) else v)
                    for k, v in config.__dict__.items()},
-    }), flush=True)
-
-    if args.checkpoint_every > 0 and not args.checkpoint_path:
-        print("error: --checkpoint-every requires --checkpoint-path", file=sys.stderr)
-        return 2
-    if not args.log_path:
+    })
+    if not args.log_path or rank() != 0:
         return _run_fit(args, problem, config, None)
     with open(args.log_path, "a") as logf:
         def log(rec):
@@ -291,13 +384,22 @@ def main(argv=None):
 
 
 def _run_fit(args, problem, config, log):
-    """Single-device training, supervised or (``--unsupervised``) with the
-    NCE objective, then the final checkpoint (or, under --save-best, the
-    final state in the ``.last`` sibling when --checkpoint-every is set: the
-    best state is already in the path)."""
+    """Training, supervised or (``--unsupervised``) with the NCE objective,
+    on one device or (``--partitioned``) node-sharded on every rank, then
+    the final checkpoint, written by the first rank (or, under --save-best,
+    the final state in the ``.last`` sibling when --checkpoint-every is set:
+    the best state is already in the path)."""
+    from tpu_sage_torch.dist.mesh import rank
     from tpu_sage_torch.train.checkpoint import save_checkpoint
 
-    if args.unsupervised:
+    if args.partitioned:
+        from tpu_sage_torch.dist.train import fit_partitioned
+
+        _, state, _ = fit_partitioned(
+            problem.store, config, log=log, eval_every_epoch=not args.no_eval,
+            resume_from=args.checkpoint_path, checkpoint_every=args.checkpoint_every,
+            csr=args.csr_adjacency, device=None)
+    elif args.unsupervised:
         from tpu_sage_torch.train.unsupervised import UnsupConfig, fit_unsupervised
 
         _, state, _ = fit_unsupervised(
@@ -322,7 +424,7 @@ def _run_fit(args, problem, config, log):
             device=args.device,
             csr=args.csr_adjacency,
         )
-    if args.checkpoint_path:
+    if args.checkpoint_path and rank() == 0:
         path = None
         if not args.save_best:
             path = args.checkpoint_path

@@ -91,17 +91,23 @@ class QuantizedFeats:
         return self._dequantize(self.q)
 
 
-def quantize_np(feats: np.ndarray):
-    """Host-side: float features → ``(q int8, scale float32)`` numpy pair.
+def column_scales(feats: np.ndarray) -> np.ndarray:
+    """``scale[j] = max|feats[:, j]| / 127`` (1.0 for all-zero columns), f32."""
+    absmax = np.abs(np.asarray(feats, dtype=np.float32)).max(axis=0)
+    return np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
 
-    ``scale[j] = max|feats[:, j]| / 127`` (1.0 for all-zero columns); values
-    round to the nearest step, so each element's error is at most
-    ``scale[j] / 2``."""
-    feats = np.asarray(feats, dtype=np.float32)
-    absmax = np.abs(feats).max(axis=0)
-    scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
-    q = np.clip(np.rint(feats / scale), -127, 127).astype(np.int8)
-    return q, scale
+
+def quantize_rows(feats: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """Rows of float features → int8 at the given per-column scales: each
+    value rounds to the nearest step, so its error is at most ``scale[j]/2``."""
+    return np.clip(np.rint(np.asarray(feats, dtype=np.float32) / scale), -127, 127).astype(np.int8)
+
+
+def quantize_np(feats: np.ndarray):
+    """Host-side: float features → ``(q int8, scale float32)`` numpy pair
+    (``quantize_rows`` at ``column_scales``)."""
+    scale = column_scales(feats)
+    return quantize_rows(feats, scale), scale
 
 
 def quantize_feats(feats: np.ndarray, out_dtype: torch.dtype = torch.bfloat16,

@@ -204,7 +204,9 @@ def bench_store(
     targets = labels.astype(np.int64)
     if cache_path is not None:
         os.makedirs(cache_dir, exist_ok=True)
-        tmp_path = cache_path + ".tmp.npz"  # atomic publish
+        # atomic publish, from a file of this process's own: the ranks of a
+        # partitioned run build the same store at once
+        tmp_path = f"{cache_path}.{os.getpid()}.tmp.npz"
         with open(tmp_path, "wb") as f:
             np.savez(f, adj=adj, feats=feats, targets=targets,
                      **{f"fold_{k}": v for k, v in folds.items()})

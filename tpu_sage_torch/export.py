@@ -9,8 +9,15 @@ shared), runs exact layer-wise inference over every node
 ``.npy`` the serving stack can mmap. The model flags must match the training
 run, or pass the same ``--config`` preset, or ``--checkpoint-config``. The
 features go to the device as f32 whatever dtype the model trained in, as in
-the JAX package. Runs on the CUDA card unless ``--device cpu``; the
-partitioned and multi-process flags exit 2 (ROADMAP Queue 1 item 14).
+the JAX package. Runs on the CUDA card unless ``--device cpu``.
+
+``--partitioned`` runs the exact pass node-sharded
+(``nn/full_graph.py::embed_all_nodes_partitioned``) on every rank of a
+process group, as ``cli.py --partitioned`` starts them (torchrun's ranks, or
+one per visible card, or one CPU rank); the first rank writes the same
+``.npy`` the single-device export writes. The multi-host flags
+(``--coordinator``, ``--num-processes``, ``--process-id``) exit 2 (ROADMAP
+Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -55,7 +62,7 @@ def _npz_embedding_rows(path):
     return None
 
 
-def main(argv=None):
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--problem-path")
@@ -70,7 +77,8 @@ def main(argv=None):
     ap.add_argument("--logits", action="store_true",
                     help="export classifier logits instead of embeddings")
     ap.add_argument("--partitioned", action="store_true",
-                    help="sharded exact inference (not ported yet)")
+                    help="node-sharded exact inference over torch.distributed (one "
+                         "rank per visible card, or torchrun's; one on --device cpu)")
     ap.add_argument("--chunk", type=int, default=4096)
     ap.add_argument("--out-dtype", default="float32", choices=["float32", "float16"],
                     help="dtype of the exported .npy; float16 halves the "
@@ -89,10 +97,12 @@ def main(argv=None):
     ap.add_argument("--synthetic-classes", type=int, default=7)
     ap.add_argument("--synthetic-feat-dim", type=int, default=64)
     ap.add_argument("--seed", type=int, default=123)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    for flag, given in (("--partitioned", args.partitioned),
-                        ("--coordinator", args.coordinator is not None),
+
+def main(argv=None):
+    args = parse_args(argv)
+    for flag, given in (("--coordinator", args.coordinator is not None),
                         ("--num-processes", args.num_processes is not None),
                         ("--process-id", args.process_id is not None)):
         if given:
@@ -102,7 +112,19 @@ def main(argv=None):
 
     if cuda_missing(args.device):
         return 2
+    if args.partitioned:
+        from tpu_sage_torch.cli import run_ranks
 
+        return run_ranks(_rank_main, args.device, (list(sys.argv[1:] if argv is None else argv),))
+    return _export(args)
+
+
+def _rank_main(argv) -> int:
+    """One rank of a ``--partitioned`` export."""
+    return _export(parse_args(argv))
+
+
+def _export(args) -> int:
     import torch
 
     from tpu_sage_torch.data.problem import NodeProblem
@@ -154,17 +176,39 @@ def main(argv=None):
 
     model = build_model(config, problem.n_nodes, problem.n_classes, problem.feats_dim)
     trainer = Trainer(model, config, steps_per_epoch=1, task=problem.task)
-    graph = problem.device_graph(train=False, device=args.device)  # f32 features
-    state = load_checkpoint(args.checkpoint, trainer.init_state(graph))
-    out = embed_all_nodes(model, graph, chunk=args.chunk, with_head=args.logits)
-    if args.out_dtype != "float32":
-        out = out.to(getattr(torch, args.out_dtype))  # on the device, before the copy
+    if args.partitioned:
+        # only this rank's shard of the full graph goes to the device (f32
+        # features); the shards' outputs are gathered in the output dtype
+        from tpu_sage_torch.dist.halo import all_gather_rows
+        from tpu_sage_torch.dist.mesh import rank
+        from tpu_sage_torch.dist.partition import shard_graph
+        from tpu_sage_torch.nn.full_graph import embed_all_nodes_partitioned
+
+        device = (torch.device("cuda", torch.cuda.current_device()) if args.device == "cuda"
+                  else torch.device("cpu"))
+        graph, _ = shard_graph(problem.store, train=False, device=device)
+        state = load_checkpoint(args.checkpoint, trainer.init_state(graph))
+        out = embed_all_nodes_partitioned(model, graph, chunk=args.chunk,
+                                          with_head=args.logits)
+        if args.out_dtype != "float32":
+            out = out.to(getattr(torch, args.out_dtype))
+        out = all_gather_rows(out)[:problem.n_nodes]
+        process = rank()
+    else:
+        graph = problem.device_graph(train=False, device=args.device)  # f32 features
+        state = load_checkpoint(args.checkpoint, trainer.init_state(graph))
+        out = embed_all_nodes(model, graph, chunk=args.chunk, with_head=args.logits)
+        if args.out_dtype != "float32":
+            out = out.to(getattr(torch, args.out_dtype))  # on the device, before the copy
+        process = 0
+    if process != 0:
+        return 0
     arr = out.cpu().numpy()
     np.save(args.out, arr)
     print(json.dumps({
         "out": args.out, "shape": list(arr.shape),
         "kind": "logits" if args.logits else "embeddings",
-        "from_step": state.step, "process": 0,
+        "from_step": state.step, "process": process,
     }))
     return 0
 

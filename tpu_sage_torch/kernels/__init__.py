@@ -15,10 +15,15 @@ port module            replaces (JAX package)                              CUDA 
 ``mean_project``       ``kernels/mean_project.py::mean_project``           ``csrc/mean_project.cu``
 =====================  ==================================================  ====================
 
+``gather_mean`` also holds the owner side of the partitioned path's
+pre-reduced exchange (``tpu_sage/dist/halo.py::dist_gather_fanout_mean``, XLA
+in the JAX package), ``gather_fanout_mean_owned``.
+
 Each module holds its kernel's wrapper, the plain PyTorch version beside it
-(``*_reference``) and a launch counter ``LAUNCHES``; ``gather_mean`` and
-``sample_hop`` hold a second entry point each, the int8 fanout mean and the
-CSR hop, with counters of their own (``COUNTERS``). A wrapper runs the plain
+(``*_reference``) and a launch counter ``LAUNCHES``; ``gather_mean`` holds
+two more entry points, the int8 fanout mean and the owner-masked one, and
+``sample_hop`` a second, the CSR hop, each with a counter of its own
+(``COUNTERS``). A wrapper runs the plain
 version only for tensors on the CPU; for a CUDA tensor it launches its kernel
 or raises. The kernels build on first use (``_build``). ``gather_blockspec``
 is the measurement foil of ``gather``: nothing on the main path launches it.
@@ -40,9 +45,11 @@ KERNEL_MODULES = {
     "mean_project": mean_project,
     "gather_fanout_mean_int8": gather_mean,
     "sample_hop_csr": sample_hop,
+    "gather_fanout_mean_owned": gather_mean,
 }
 COUNTERS = {name: "LAUNCHES" for name in KERNEL_MODULES}  # each kernel's counter
-COUNTERS.update(gather_fanout_mean_int8="INT8_LAUNCHES", sample_hop_csr="CSR_LAUNCHES")
+COUNTERS.update(gather_fanout_mean_int8="INT8_LAUNCHES", sample_hop_csr="CSR_LAUNCHES",
+                gather_fanout_mean_owned="OWNED_LAUNCHES")
 
 
 def launch_counts() -> dict:

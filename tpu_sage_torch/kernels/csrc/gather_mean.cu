@@ -417,3 +417,176 @@ extern "C" int tsg_gather_fanout_mean_int8(const void* table, const void* ids,
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// Owner-masked rows: tsg_gather_fanout_mean_owned.
+//
+// Replaces the owner side of tpu_sage/dist/halo.py::dist_gather_fanout_mean
+// (:229-240, XLA in the JAX package): on the partitioned path each rank owns
+// the rows [lo, lo + m) of the feature table, and for the deepest level's
+// ids of every rank (R*F global ids) it pre-reduces the rows it owns to
+// per-root f32 partial means, which the requesters then sum over the ranks:
+//   out[r] = fl32(sum_f x[r, f]) * fl32(1/F),
+//   x[r, f] = f32(table[ids[r*F + f] - lo]) if lo <= ids[r*F + f] < lo + m,
+//             else +0.0,
+// summed in f32 in order f = 0, 1, ... from +0.0 (the divisor stays F when
+// rows are not owned). That is the jitted reference's form: XLA reduces the
+// where-zeroed rows from its zero and multiplies by fl32(1/F)
+// (__frcp_rn(F)). An int8 table sums its raw values in int32 (exact, as the
+// reference's f32 sum of small integers is) and returns the f32 mean of the
+// raw values; the requester applies the scale after the exchange, as the
+// reference's dist path does. Bitwise the plain version
+// (kernels/gather_mean.py::gather_fanout_mean_owned_reference).
+//
+// Bound on the H100: bytes, as for the dense kernel above: the owned rows
+// read once (about 1/world of the level's distinct rows) and the f32
+// partial means written once (R*d*4 bytes, every root's, owned or not). The
+// design is the dense kernel's (one warp per root, the first F lanes load
+// the root's ids and __shfl_sync hands them out, kJ rows' loads in flight)
+// with a range test per id: a row the rank does not own is not loaded, and
+// its word stays zero.
+
+namespace {
+
+template <typename T, int V> struct OwnedWord { using type = typename Word<sizeof(T) * V>::T; };
+template <int V> struct OwnedWord<int8_t, V> { using type = typename Int8Word<V>::T; };
+template <typename T, int V> struct OwnedWordsPerLane {
+  static constexpr int value = WordsPerLane<V>::value;
+};
+template <int V> struct OwnedWordsPerLane<int8_t, V> {
+  static constexpr int value = Int8WordsPerLane<V>::value;
+};
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kWarps * 32)
+gather_fanout_mean_owned_kernel(const T* __restrict__ table, const int32_t* __restrict__ ids,
+                                float* __restrict__ out, int64_t lo, int64_t m,
+                                int64_t n_roots, int d, int fanout) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  using W = typename OwnedWord<T, V>::type;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int kK = OwnedWordsPerLane<T, V>::value;
+  const int lane = threadIdx.x & 31;
+  const int64_t root = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (root >= n_roots) return;
+  const int32_t* root_ids = ids + root * fanout;
+  const int words = d / V;
+  float* dst = out + root * d;
+
+  // the row within this rank's range, or -1 for a row it does not own
+  auto load_id = [&](int j) -> int64_t {
+    if (j >= fanout) return -1;
+    const int64_t local = (int64_t)root_ids[j] - lo;
+    return (local >= 0 && local < m) ? local : -1;
+  };
+  const int64_t first_ids = load_id(lane);
+
+#pragma unroll 1
+  for (int w0 = 0; w0 < words; w0 += 32 * kK) {
+    Acc acc[kK][V];
+#pragma unroll
+    for (int k = 0; k < kK; ++k)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[k][e] = 0;
+#pragma unroll 1
+    for (int jb = 0; jb < fanout; jb += 32) {
+      const int64_t my_id = jb == 0 ? first_ids : load_id(jb + lane);
+      const int jend = min(fanout, jb + 32);
+#pragma unroll 1
+      for (int j0 = jb; j0 < jend; j0 += kJ) {
+        W v[kJ][kK];
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          const int64_t id = __shfl_sync(0xffffffffu, my_id, j0 - jb + jj);
+          const W* row = reinterpret_cast<const W*>(table + (id < 0 ? 0 : id) * d);
+#pragma unroll
+          for (int k = 0; k < kK; ++k) {
+            const int wi = w0 + k * 32 + lane;
+            v[jj][k] = W{};  // a row not owned adds +0.0 (int8: 0)
+            if (j0 + jj < jend && wi < words && id >= 0) ld_nc(v[jj][k], row + wi);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          if (j0 + jj < jend) {
+#pragma unroll
+            for (int k = 0; k < kK; ++k)
+#pragma unroll
+              for (int e = 0; e < V; ++e) {
+                if constexpr (kInt8) {
+                  acc[k][e] += byte_of(v[jj][k], e);
+                } else {
+                  acc[k][e] = __fadd_rn(acc[k][e], element<T, V>(v[jj][k], e));
+                }
+              }
+          }
+        }
+      }
+    }
+    const float recip = __frcp_rn((float)fanout);
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int wi = w0 + k * 32 + lane;
+      if (wi < words) {
+        float* o = dst + (int64_t)wi * V;
+        if constexpr (V == 1) {
+          o[0] = __fmul_rn((float)acc[k][0], recip);
+        } else {  // V even: d is even, so a word's outputs start 8-byte aligned
+#pragma unroll
+          for (int e = 0; e < V; e += 2)
+            *reinterpret_cast<float2*>(o + e) = make_float2(
+                __fmul_rn((float)acc[k][e], recip), __fmul_rn((float)acc[k][e + 1], recip));
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+int launch_owned(const void* table, const void* ids, void* out, int64_t lo, int64_t m,
+                 int64_t n_roots, int d, int fanout, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n_roots + kWarps - 1) / kWarps);
+  gather_fanout_mean_owned_kernel<T, V><<<blocks, kWarps * 32, 0, s>>>(
+      (const T*)table, (const int32_t*)ids, (float*)out, lo, m, n_roots, d, fanout);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// kind: 0 f32, 1 bf16, 2 int8 table (m, d), this rank's rows [lo, lo + m).
+// vec: elements per word, as for tsg_gather_fanout_mean (f32: 2, 1; bf16: 8,
+// 4, 2, 1) or bytes per word, as for tsg_gather_fanout_mean_int8 (int8: 16,
+// 8, 4, 2, 1). out (n_roots, d) f32, its base 8-byte aligned.
+extern "C" int tsg_gather_fanout_mean_owned(const void* table, const void* ids, void* out,
+                                            long long lo, long long m, long long n_roots,
+                                            int d, int fanout, int kind, int vec,
+                                            void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kind == 0) {
+    switch (vec) {
+      case 2: return launch_owned<float, 2>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 1: return launch_owned<float, 1>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (kind == 1) {
+    switch (vec) {
+      case 8: return launch_owned<__nv_bfloat16, 8>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 4: return launch_owned<__nv_bfloat16, 4>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 2: return launch_owned<__nv_bfloat16, 2>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 1: return launch_owned<__nv_bfloat16, 1>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (kind == 2) {
+    switch (vec) {
+      case 16: return launch_owned<int8_t, 16>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 8: return launch_owned<int8_t, 8>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 4: return launch_owned<int8_t, 4>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 2: return launch_owned<int8_t, 2>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      case 1: return launch_owned<int8_t, 1>(table, ids, out, lo, m, n_roots, d, fanout, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}

@@ -12,6 +12,14 @@ per-column scales (``tpu_sage/data/quantize.py::QuantizedFeats.fanout_mean``,
 XLA in the JAX package): the second entry point of ``csrc/gather_mean.cu``,
 with its own counter ``INT8_LAUNCHES`` and its plain version
 ``gather_fanout_mean_int8_reference``.
+
+``gather_fanout_mean_owned`` is the owner side of the partitioned path's
+pre-reduced exchange (``tpu_sage/dist/halo.py::dist_gather_fanout_mean``,
+XLA in the JAX package): the same pass over this rank's rows ``[lo, lo +
+m)`` of a bf16, f32 or int8 table, rows outside the range counting as zero
+rows and the divisor staying ``F``. The third entry point of
+``csrc/gather_mean.cu``, with its counter ``OWNED_LAUNCHES`` and its plain
+version ``gather_fanout_mean_owned_reference``.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from tpu_sage_torch.kernels.gather import plain_ids
 
 LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 INT8_LAUNCHES = 0  # the same, of the int8 entry point
+OWNED_LAUNCHES = 0  # the same, of the owner-masked entry point
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -34,7 +43,10 @@ _SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, _P),
     "tsg_gather_fanout_mean_int8": (_P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    "tsg_gather_fanout_mean_owned": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int, _P),
 }
+_OWNED_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def word_elements(table: torch.Tensor) -> int:
@@ -175,4 +187,51 @@ def gather_fanout_mean_int8(q: torch.Tensor, scale: torch.Tensor, ids: torch.Ten
            out.data_ptr(), n, r, d, fanout, int(out_dtype == torch.bfloat16), int(summean),
            int8_word_bytes(q), device=q.device)
     INT8_LAUNCHES += 1
+    return out
+
+
+def gather_fanout_mean_owned_reference(table: torch.Tensor, ids: torch.Tensor, fanout: int,
+                                       lo: int) -> torch.Tensor:
+    """Plain PyTorch version of ``gather_fanout_mean_owned``: the rows this
+    rank owns, the others zero, summed in f32 in order j = 0, 1, ... from
+    zero (an int8 table's raw values in int32), times ``fl32(1/F)``."""
+    m, d = table.shape
+    local = ids.long() - lo
+    owned = ((local >= 0) & (local < m))[:, None]
+    rows = table[local.clamp(0, max(m - 1, 0))]
+    if table.dtype == torch.int8:
+        s = torch.where(owned, rows.to(torch.int32), 0).view(-1, fanout, d)
+        s = s.sum(1, dtype=torch.int32)
+        return s.float() * reciprocal(fanout)
+    x = torch.where(owned, rows.float(), 0.0).view(-1, fanout, d)
+    acc = torch.zeros((x.shape[0], d), dtype=torch.float32, device=table.device)
+    for j in range(fanout):
+        acc = acc + x[:, j]
+    return acc * reciprocal(fanout)
+
+
+def gather_fanout_mean_owned(table: torch.Tensor, ids: torch.Tensor, fanout: int,
+                             lo: int) -> torch.Tensor:
+    """``table (m, d)`` bf16/f32/int8, this rank's rows ``[lo, lo + m)`` of
+    the global table; ``ids (R·fanout,)`` int32 global ids → ``(R, d)`` f32
+    partial means over the owned rows (an int8 table's of its raw values)."""
+    global OWNED_LAUNCHES
+    if fanout < 1 or ids.shape[0] % fanout:
+        raise ValueError(f"ids length {ids.shape[0]} is not a multiple of fanout {fanout}")
+    if table.device.type == "cpu":
+        return gather_fanout_mean_owned_reference(table, ids, fanout, lo)
+    if table.device.type != "cuda":
+        raise ValueError(f"gather_fanout_mean_owned runs on cuda or cpu, got {table.device}")
+    require(table, "table", device=table.device, dtypes=tuple(_OWNED_KINDS), ndim=2)
+    require(ids, "ids", device=table.device, dtypes=(torch.int32,), ndim=1)
+    m, d = table.shape
+    r = ids.shape[0] // fanout
+    out = torch.empty((r, d), dtype=torch.float32, device=table.device)
+    if out.numel() == 0:
+        return out
+    vec = int8_word_bytes(table) if table.dtype == torch.int8 else word_elements(table)
+    lib = library("gather_mean", _SIGNATURES)
+    launch(lib.tsg_gather_fanout_mean_owned, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
+           int(lo), m, r, d, fanout, _OWNED_KINDS[table.dtype], vec, device=table.device)
+    OWNED_LAUNCHES += 1
     return out

@@ -39,8 +39,14 @@ Where the port differs in form from the JAX package, the values agree:
   ``QuantizedFeats`` to its compute dtype; raw int8 feats with
   ``graph.feat_scale`` (the partitioned layout) to the scales' dtype.
 
-The partitioned variant (``embed_all_nodes_partitioned``) is ROADMAP Queue 1
-item 14.
+``embed_all_nodes_partitioned`` is the same pass over a node-sharded graph
+(``dist/partition.py``; ``tpu_sage/nn/full_graph.py:201-310``): the
+activations stay sharded, and each layer fetches each chunk's
+``chunk·max_degree`` neighbor rows by the exact halo exchange
+(``dist/halo.py::dist_gather``; columns past a node's degree ask for id -1,
+which no rank owns, and come back as zero rows), then combines them as
+above. Every rank walks its ``m`` rows in the same chunks, so the exchanges
+line up.
 """
 
 from __future__ import annotations
@@ -193,6 +199,50 @@ def embed_all_nodes(model: GSSupervised, graph: DeviceGraph, chunk: int = 4096,
         h = _prep_table(model, _dense_feats(graph))
         for layer_idx in range(len(model.layer_specs)):
             h = _layer_full(model, layer_idx, h, graph, chunk)
+        if model.normalize:
+            h = _l2_normalize(h)
+        if with_head:
+            h = _dense(h, model.fc.kernel, model.fc.bias)
+    return h
+
+
+def embed_all_nodes_partitioned(model: GSSupervised, graph: DeviceGraph, chunk: int = 2048,
+                                with_head: bool = False) -> torch.Tensor:
+    """Exact embeddings (or logits) of this rank's ``m`` nodes, ``(m, D)``
+    f32, from its shard ``graph`` (``dist/partition.py::shard_graph``,
+    ``train=False``), run by every rank of the process group. Rows past the
+    store's node count are partition padding."""
+    from tpu_sage_torch.dist.halo import dist_gather
+    from tpu_sage_torch.dist.mesh import rank, world
+
+    _check_exact_supported(model)
+    with torch.inference_mode():
+        m, max_deg = graph.adj.shape
+        h = _dense_feats(graph)
+        if model.prep_class == "node_embedding":
+            table = model.prep.embedding.embedding
+            pad = world() * m - table.shape[0]
+            if pad > 0:
+                table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
+            h = torch.cat([h, table[rank() * m:(rank() + 1) * m]], dim=-1)
+        else:
+            h = _prep_table(model, h)
+        cols = torch.arange(max_deg, dtype=torch.int32, device=h.device)
+        for layer_idx in range(len(model.layer_specs)):
+            src = _neighbor_table(model, layer_idx, h)
+            out = None
+            for start in range(0, m, chunk):
+                adj = graph.adj[start:start + chunk]
+                deg = graph.degrees[start:start + chunk]
+                ids = torch.where(cols < deg[:, None], adj, -1).reshape(-1)
+                neigh = dist_gather(src, ids).view(adj.shape[0], max_deg, -1)
+                res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk],
+                                     src[start:start + chunk])
+                del neigh
+                if out is None:
+                    out = torch.empty((m, res.shape[1]), dtype=res.dtype, device=res.device)
+                out[start:start + chunk] = res
+            h = out
         if model.normalize:
             h = _l2_normalize(h)
         if with_head:

@@ -254,6 +254,18 @@ class GSSupervised(torch.nn.Module):
     def forward(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
         return self.fc(self.encode(levels, feats))
 
+    def forward_gathered(
+        self,
+        levels: List[torch.Tensor],
+        level_feats: List[Optional[torch.Tensor]],
+        last_reduced_fanout: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Logits from pre-gathered level features (the partitioned path,
+        ``dist/train.py``). ``last_reduced_fanout`` as for
+        ``encode_gathered``: gcn needs it when the deepest level arrives as
+        per-root means, since its reduce spans self."""
+        return self.fc(self.encode_gathered(levels, level_feats, last_reduced_fanout))
+
     def fanouts(self, train: bool) -> Tuple[int, ...]:
         return tuple(
             (s.n_train_samples if train else s.n_val_samples) for s in self.layer_specs

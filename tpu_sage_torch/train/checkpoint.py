@@ -144,11 +144,13 @@ def resume_state(state, resume_from, steps_per_epoch: int, log):
 
 
 def maybe_checkpoint(state, resume_from, checkpoint_every: int, epoch: int, log,
-                     config=None) -> None:
+                     config=None, write: bool = True) -> None:
     """Write ``resume_from`` every ``checkpoint_every`` epochs. With
     ``config.save_best`` the tracker owns ``resume_from`` (the best state so
-    far), so the periodic writes go to the ``.last`` sibling."""
-    if not (checkpoint_every > 0 and resume_from and (epoch + 1) % checkpoint_every == 0):
+    far), so the periodic writes go to the ``.last`` sibling. ``write=False``
+    (every rank of a partitioned run but the first) writes nothing."""
+    if not (write and checkpoint_every > 0 and resume_from
+            and (epoch + 1) % checkpoint_every == 0):
         return
     path = resume_from + ".last" if (config is not None and config.save_best) else resume_from
     save_checkpoint(path, state, config=config)
@@ -162,9 +164,12 @@ class BestTracker:
     val-metric improvement for ``config.patience`` consecutive epochs. With
     ``config.save_best`` the checkpoint is written on every improvement, so
     the file always holds the best state so far. Metrics are higher-is-better
-    throughout (regression metrics are negated by the eval paths)."""
+    throughout (regression metrics are negated by the eval paths).
+    ``write=False`` (every rank of a partitioned run but the first) decides
+    as the writer does but writes nothing."""
 
-    def __init__(self, config, resume_from, log):
+    def __init__(self, config, resume_from, log, write: bool = True):
+        self.write = write
         self.patience = config.patience
         self.save_best = config.save_best
         self.resume_from = resume_from
@@ -186,7 +191,7 @@ class BestTracker:
             return False
         if self.best is None or val > self.best:
             self.best, self.stale = val, 0
-            if self.save_best and self.resume_from:
+            if self.save_best and self.resume_from and self.write:
                 save_checkpoint(self.resume_from, state, config=self.config, best_metric=val)
                 self.log({"checkpoint_best": self.resume_from, "val_metric": val,
                           "step": state.step})

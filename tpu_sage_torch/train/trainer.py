@@ -40,10 +40,12 @@ Graph = Union[DeviceGraph, CSRDeviceGraph]  # what the step samples from
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """Flat, json-loadable run config with the reference's field names, so the
-    presets in ``configs/`` load unchanged. The gather-lowering
-    and partitioned-path knobs (``gather_form``, ``gather_form_deep``,
-    ``gather_chunks``, ``halo*``, ``csr_owner_select``) change no value on the
-    single-device path and are ignored."""
+    presets in ``configs/`` load unchanged. The gather-lowering knobs
+    (``gather_form``, ``gather_form_deep``, ``gather_chunks``) change no value
+    and are ignored; the partitioned path's (``halo``, ``halo_measure_steps``,
+    ``halo_capacity_factor``, ``csr_owner_select``) are read by
+    ``dist/train.py`` and ignored on one device; ``halo_chunks`` changes no
+    value there either (the port does not split the exchange)."""
 
     aggregator_class: str = "mean"
     prep_class: str = "identity"
