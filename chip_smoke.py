@@ -117,7 +117,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    with the preset for 1 epoch with a checkpoint, resumed to 2, and
    ``tpu_sage_torch.export.main --partitioned`` against the single-device
    export;
-11. prints each phase's wall time and the kernels line (the off-path cases
+11. the rest of the multi-GPU path on ``bench_store()``: (a) the kernels at
+   its new shapes (the owner-masked fanout mean over the partitioned NCE
+   step's 1,536,000 deepest ids at world 1 and as owner 1 of a (2, 2)
+   layout; an owner's ``gather_rows(oob="zero")`` answers to a (2, 2)
+   layout's ``(C, H, q)`` NCE level-1 ids; ``mean_project`` on the two
+   column slices of a model axis of 2, whose concatenation equals the whole
+   product), timed; (b) at world 1 in this process: a partitioned NCE step
+   against the single-device NCE step, a hier2d step at (1, 1) bitwise
+   exact's, a tensor-parallel step at (1, 1) against the single-device step;
+   (c) one spawned NCCL rank per visible card: NCE_STEPS partitioned NCE
+   steps at ``scripts/bench_unsup_partitioned.py``'s configuration under
+   exact, measured, hier2d, int8 shards, CSR shards and degree-smoothed
+   negatives, launches per step exact, with a profile; ``embed_fold`` and
+   the replicas' fingerprints; (d) hier2d supervised training at
+   configs/ogbn_products_dist.json's width over (1, n) (or (2, n/2) from 4
+   cards) and its exact evaluation against the single-device pass; (e)
+   tensor-parallel steps at the main path's width over (n/m, m), m = 1 on
+   one card (m = 2 with an even card count, on a 40-class Reddit-shaped SBM
+   store); (f) the CLI's ``--partitioned --unsupervised`` (1 epoch with a
+   checkpoint, resumed to 2) and ``--partitioned --halo hier2d``, the
+   exporter's ``--partitioned`` embeddings of that checkpoint against the
+   single-device export and ``--coordinator ... --num-processes 1`` bitwise
+   it; (g) ``python3 -m tpu_sage_torch.bench.scaling`` up to the visible
+   cards;
+12. prints each phase's wall time and the kernels line (the off-path cases
    among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
@@ -181,6 +205,19 @@ DIST_MODES = (("exact", {"halo": "exact"}, False), ("ring", {"halo": "ring"}, Fa
               ("bucketed", {"halo": "bucketed"}, False), ("csr", {"halo": "exact"}, True),
               ("int8", {"halo": "exact", "feature_int8": True}, False))
 OWNED_TOL = 1e-5  # x max|mean|: 4 owners' partial means summed against one fanout mean
+
+# phase 11: the rest of the multi-GPU path. Partitioned NCE at
+# scripts/bench_unsup_partitioned.py:23-28's configuration (mean, identity,
+# batch 512, (25, 10), (128, 128), bf16, walk length 3, 10 negatives) on
+# bench_store: (label, config, UnsupConfig, CSR shards)
+NCE_MODES = (("exact", {"halo": "exact"}, {}, False),
+             ("measured", {"halo": "measured"}, {}, False),
+             ("hier2d", {"halo": "hier2d"}, {}, False),
+             ("int8", {"halo": "exact", "feature_int8": True}, {}, False),
+             ("csr", {"halo": "exact"}, {}, True),
+             ("smoothed", {"halo": "exact"}, {"neg_power": 0.75}, False))
+NCE_STEPS, NCE_WARMUP, TP_STEPS = 20, 3, 20
+TP_CLASSES = 40  # the Reddit-shaped SBM store's classes under a model axis of 2 (41 is odd)
 
 # Published peaks (NVIDIA data sheets, dense): bytes/s, bf16 tensor FLOP/s,
 # f32 FLOP/s. The SXM part is the default; the PCIe part by name.
@@ -256,7 +293,7 @@ def dist_per_step(mode, world):
     means them at the requester); ``mean_project`` for the two unreduced
     pairings."""
     per = {"exact": 1, "ring": world, "pipelined": world, "bucketed": 3, "csr": 1,
-           "int8": 1}[mode]
+           "int8": 1, "hier2d": 1}[mode]
     hops = 8 if mode == "csr" else 2 * per
     deepest_rows = per if mode == "bucketed" else 0
     return {"select_columns": 2, "sample_hop": 0, "gather_rows": hops + 2 * per + deepest_rows,
@@ -2382,6 +2419,536 @@ def phase_dist(torch, np, store, graph, smi, peaks):
     return results, by_path
 
 
+# -- phase 11: the rest of the multi-GPU path ------------------------------------
+
+def nce_dist_per_step(mode, world):
+    """Kernel launches of one partitioned NCE step (phase 11's configuration)
+    on each of ``world`` ranks: the WALK_LENGTH walk hops and the tree's 2
+    hops each exchange adjacency || degree rows (``gather_rows`` once per
+    exchange, or per rank a ring passes; on CSR shards the pick moves to the
+    owner after four gathers) and pick a column (``select_columns``); levels
+    0 and 1's features (``gather_rows``); the deepest level's pre-reduced
+    means (``gather_fanout_mean_owned``); 2 ``mean_project``. ``hier2d``
+    answers each exchange once, as exact does."""
+    per = world if mode in ("ring", "pipelined") else 1
+    hops = WALK_LENGTH + len(FANOUTS)
+    return {"select_columns": hops, "sample_hop": 0,
+            "gather_rows": (4 * hops if mode == "csr" else hops * per) + 2 * per,
+            "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
+            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "gather_fanout_mean_owned": per}
+
+
+def nce_config(**kw):
+    """``scripts/bench_unsup_partitioned.py:23-28``: mean, identity, batch
+    512, (25, 10), (128, 128), bf16, walk length 3, 10 negatives."""
+    return unsup_config(**kw)
+
+
+def multi_gpu_kernel_cases(torch, graph, peaks):
+    """Phase 11 (a): the kernels at this phase's new shapes, against their
+    plain versions (bitwise; ``mean_project`` within MEAN_PROJECT_TOL) and
+    timed (weight 0): the owner-masked fanout mean over the partitioned NCE
+    step's deepest level at world 1 (6,144 roots x 25 x 10 = 1,536,000 ids,
+    one owner) and as owner 1 of a (2, 2) layout (the 4 ranks' (C, H, q)
+    ids); ``gather_rows(oob="zero")`` as owner 1 of a (2, 2) layout answers
+    the 4 ranks' NCE level-1 ids; ``mean_project`` on the column slices a
+    model axis of 2 gives (the main path's two layers, W (602, 64) and
+    (256, 64)), whose concatenation must equal the whole product."""
+    from tpu_sage_torch.kernels import gather, gather_mean, mean_project
+    from tpu_sage_torch.sample.sampler import sample_tree
+
+    bw, bf16_peak, _ = peaks
+    feats, adj, deg = graph.feats, graph.adj, graph.degrees
+    n, d = feats.shape
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    roots = torch.randint(0, n, (BATCH * (2 + N_NEGATIVES),), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    tree = sample_tree(adj, deg, roots, FANOUTS, generator=gen)
+    ids, f = tree[2], FANOUTS[1]
+    r = ids.shape[0] // f
+    m = -(-n // 4)
+    cases = []
+
+    def distinct(x):
+        return int(torch.unique(x).numel())
+
+    for label, lo, local in (("world 1, one owner", 0, feats),
+                             ("(2, 2) layout, owner 1 of 4", m, feats[m:2 * m])):
+        own = (ids >= lo) & (ids < lo + local.shape[0])
+        cases.append(kernel_case(
+            "gather_fanout_mean_owned", f"NCE deepest, {label}: bf16 {tuple(local.shape)} "
+            f"ids={ids.shape[0]} F={f}",
+            lambda t=local, lo=lo: gather_mean.gather_fanout_mean_owned(t, ids, f, lo),
+            lambda t=local, lo=lo: gather_mean.gather_fanout_mean_owned_reference(t, ids, f, lo),
+            lambda t=local, lo=lo, own=own: torch.where(
+                own[:, None], t[(ids.long() - lo).clamp(0, t.shape[0] - 1)], 0
+            ).float().view(r, f, d).mean(1),
+            4 * ids.shape[0] + distinct(ids[own]) * d * 2 + r * d * 4, weight=0))
+    lids = (tree[1] - m).contiguous()
+    own = (lids >= 0) & (lids < m)
+    local = feats[m:2 * m]
+    cases.append(kernel_case(
+        "gather_rows", f"(2, 2) owner 1 answers NCE level 1 (C, H, q) = (2, 2, "
+        f"{lids.shape[0] // 4}) bf16 {tuple(local.shape)} oob=zero",
+        lambda: gather.gather_rows(local, lids, "zero"),
+        lambda: gather.gather_rows_reference(local, lids, "zero"),
+        lambda: torch.where(own[:, None], local[lids.long().clamp(0, m - 1)], 0),
+        4 * lids.shape[0] + distinct(lids[own]) * d * 2 + lids.shape[0] * d * 2, weight=0))
+
+    main_tree = sample_tree(adj, deg, roots[:BATCH], FANOUTS, generator=gen)
+    x0 = feats[main_tree[1].long()].view(BATCH, FANOUTS[0], d)
+    x1 = torch.relu(torch.randn((BATCH, FANOUTS[0], 2 * DIMS[0]), generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+    for label, x in (("layer 0", x0), ("layer 1", x1)):
+        b, fo, dx = x.shape
+        w = (torch.randn((dx, DIMS[1]), generator=gen, device="cuda") / dx ** 0.5).to(x.dtype)
+        halves = [w[:, j * DIMS[1] // 2:(j + 1) * DIMS[1] // 2].contiguous() for j in (0, 1)]
+        whole = mean_project.mean_project(x, w)
+        cat = torch.cat([mean_project.mean_project(x, h) for h in halves], dim=1)
+        torch.testing.assert_close(cat.float(), whole.float(), rtol=MEAN_PROJECT_TOL[0],
+                                   atol=MEAN_PROJECT_TOL[1] * whole.float().abs().max().item())
+        log(f"  mean_project {label}: the 2 column slices' products concatenated against the "
+            f"whole: max abs err {(cat.float() - whole.float()).abs().max().item():.3g}")
+        for j, h in enumerate(halves):
+            cases.append(kernel_case(
+                "mean_project", f"TP {label} slice {j}/2: x bf16 {tuple(x.shape)}, W "
+                f"{tuple(h.shape)}",
+                lambda x=x, h=h: mean_project.mean_project(x, h),
+                lambda x=x, h=h: mean_project.mean_project_reference(x, h),
+                lambda x=x, h=h: x.mean(1) @ h,
+                x.numel() * 2 + h.numel() * 2 + b * h.shape[1] * 2,
+                flops=2 * b * dx * h.shape[1] + b * fo * dx, peak=bf16_peak,
+                tol=MEAN_PROJECT_TOL, weight=0))
+    results = time_cases(torch, cases, bw)
+    del x0, x1, tree, main_tree
+    return results
+
+
+def _grads(model):
+    return {k: p.grad.float().clone() for k, p in model.named_parameters()}
+
+
+def _within(label, loss_a, loss_b, grads_a, grads_b, tol):
+    errs = {k: ((grads_a[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+            for k, g in grads_b.items()}
+    if not (abs(loss_a - loss_b) <= tol * abs(loss_b) and max(errs.values()) <= tol):
+        raise AssertionError(f"{label}: loss {loss_a} vs {loss_b}, gradient errors (share "
+                             f"of scale) {errs}")
+    log(f"  world 1: {label}: loss {loss_a:.6f} vs {loss_b:.6f}; gradients within "
+        f"{max(errs.values()):.3g} of scale (limit {tol})")
+
+
+def multi_gpu_world1(torch, np, store, graph):
+    """Phase 11 (b), at world 1 in this process (an NCCL group of one rank):
+    one partitioned NCE step on an injected tree over anchors || positives
+    || negatives against the single-device NCE step (loss and gradients
+    within phase 4's bf16 limit); one hier2d supervised step at layout (1, 1)
+    against exact's on the same injected levels, bitwise; one tensor-parallel
+    ``DataParallelTrainer(model_axis="model")`` step at (1, 1) against the
+    single-device step (loss rtol 1e-5; parameters rtol 1e-4, atol 1e-6)."""
+    from tpu_sage_torch.dist import mesh
+    from tpu_sage_torch.dist.data_parallel import DataParallelTrainer
+    from tpu_sage_torch.dist.train import PartitionedTrainer
+    from tpu_sage_torch.dist.unsupervised import PartitionedUnsupervisedTrainer
+    from tpu_sage_torch.sample.sampler import sample_tree
+    from tpu_sage_torch.train.trainer import TrainConfig, Trainer, build_model
+    from tpu_sage_torch.train.unsupervised import (UnsupConfig, UnsupervisedTrainer,
+                                                   unsup_gather_defaults)
+
+    unsup = UnsupConfig(WALK_LENGTH, N_NEGATIVES)
+    cfg = unsup_gather_defaults(nce_config())
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    anchors = torch.as_tensor(store.folds["train"][:BATCH], dtype=torch.int32, device="cuda")
+    others = torch.randint(0, store.n_nodes, (BATCH * (1 + N_NEGATIVES),), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    levels = sample_tree(graph.adj, graph.degrees, torch.cat([anchors, others]), FANOUTS,
+                         generator=gen)
+
+    def nce():
+        tr, g, fold_ids, fold_w = PartitionedUnsupervisedTrainer.from_store(store, cfg, unsup,
+                                                                           "cuda:0")
+        st = tr.init_state()
+        st, m = tr.train_step(st, g, fold_ids, fold_w, levels=levels)
+        return float(m["loss"]), _grads(tr.model)
+
+    loss_p, grads_p = mesh.run_in_process(nce, "cuda")
+    model = build_model(cfg, store.n_nodes, max(store.n_classes, 2), store.feat_dim)
+    trainer = UnsupervisedTrainer(model, cfg, unsup, steps_per_epoch=1)
+    state = trainer.init_state(graph)
+    loss_s = float(trainer.nce_loss_and_grads(state, graph, anchors, levels=levels))
+    _within("partitioned NCE step against the single-device NCE step", loss_p, loss_s,
+            grads_p, _grads(model), SAMPLED_TOL)
+
+    dcfg = TrainConfig.from_json(DIST_CONFIG)
+    dist_roots = torch.as_tensor(store.folds["train"][:DIST_BATCH], dtype=torch.int32,
+                                 device="cuda")
+    dist_levels = sample_tree(graph.adj, graph.degrees, dist_roots, FANOUTS, generator=gen)
+
+    def supervised(mode):
+        layout = mesh.layout_2d(1, 1) if mode == "hier2d" else None
+        tr, g, fold_ids, fold_w = PartitionedTrainer.from_store(
+            store, dcfg.replace(halo=mode), "cuda:0", layout=layout)
+        st = tr.init_state()
+        st, m = tr.train_step(st, g, fold_ids, fold_w, levels=dist_levels)
+        return m["loss"].clone(), _grads(tr.model)
+
+    (lh, gh), (le, ge) = mesh.run_in_process(lambda: (supervised("hier2d"),
+                                                      supervised("exact")), "cuda")
+    if not (torch.equal(lh, le) and all(torch.equal(gh[k], ge[k]) for k in ge)):
+        raise AssertionError(f"hier2d at (1, 1): loss {lh.item()} vs exact {le.item()}, "
+                             f"gradients differ in {[k for k in ge if not torch.equal(gh[k], ge[k])]}")
+    log(f"  world 1: hier2d step at layout (1, 1) bitwise exact's (loss {lh.item():.6f})")
+
+    tcfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                       output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01)
+    main_levels = sample_tree(graph.adj, graph.degrees, anchors, FANOUTS, generator=gen)
+
+    def step(cls, **kw):
+        model = build_model(tcfg, store.n_nodes, store.n_classes, store.feat_dim)
+        tr = cls(model, tcfg, steps_per_epoch=1, task=store.task, **kw)
+        st = tr.init_state(graph)
+        st, m = tr.train_step(st, graph, anchors, graph.targets[anchors.long()],
+                              levels=main_levels)
+        return float(m["loss"]), {k: p.detach().float().clone()
+                                  for k, p in model.named_parameters()}
+
+    loss_t, params_t = mesh.run_in_process(
+        lambda: step(DataParallelTrainer, model_axis="model", layout=mesh.layout_2d(1, 1)),
+        "cuda")
+    loss_1, params_1 = step(Trainer)
+    torch.testing.assert_close(torch.tensor(loss_t), torch.tensor(loss_1), rtol=1e-5, atol=0)
+    for k, p in params_1.items():
+        torch.testing.assert_close(params_t[k], p, rtol=1e-4, atol=1e-6, msg=k)
+    log(f"  world 1: tensor-parallel step at (data, model) = (1, 1): loss {loss_t:.6f} vs "
+        f"{loss_1:.6f}; parameters within rtol 1e-4, atol 1e-6")
+
+
+def _profiled_run(torch, np, label, step, steps, warmup, want, edges_per_step):
+    """``warmup`` steps, then ``steps`` timed with the launch counters from
+    0 (exactly ``want`` per step), then DIST_PROFILE under torch.profiler.
+    ``step()`` returns the step's metrics. Returns the run's record."""
+    import torch.distributed as dist
+
+    from tpu_sage_torch import kernels
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    dist.barrier()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step()["loss"] for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    if counts != {k: v * steps for k, v in want.items()}:
+        raise AssertionError(f"{label}: launches in {steps} steps {counts}, expected {want} "
+                             f"per step")
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    kern, launches = device_profile(torch, step, DIST_PROFILE)
+    # an NCCL kernel runs from its launch until its peers' data has arrived,
+    # so its time holds the wait for the other ranks: counted apart
+    nccl_ms = sum(k[1] for k in kern if k[0].startswith("nccl"))
+    device_ms = sum(k[1] for k in kern) - nccl_ms
+    ms = dt / steps * 1e3
+    return {"run": label, "steps": steps, "ms_per_step": ms,
+            "edges_per_s": edges_per_step * steps / dt, "loss_first": float(losses[0]),
+            "loss_last": float(losses[-1]), "launches": counts, "launches_per_step": want,
+            "device_kernel_ms_per_step": device_ms, "nccl_kernel_ms_per_step": nccl_ms,
+            "device_busy_share": device_ms / ms if device_ms else None,
+            "kernel_launches_per_step": launches,
+            "top_kernels_ms_per_step": [[k[0][:80], k[1], k[2]] for k in kern[:8]]}
+
+
+def multi_gpu_rank(out_dir):
+    """Phase 11 (c)-(e), run by every spawned rank: (c) NCE_STEPS partitioned
+    NCE steps under each of NCE_MODES (exact launches per step, a profile),
+    ``embed_fold`` of the val fold and the replicas' fingerprints; (d)
+    DIST_STEPS hier2d steps at configs/ogbn_products_dist.json's width over
+    (1, n) or, from 4 cards, (2, n/2), and its exact evaluation against the
+    single-device pass; (e) TP_STEPS tensor-parallel steps at the main
+    path's width over (n/m, m). Writes ``out_dir/rank<r>.json``."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_sage_torch.data.synthetic import bench_store, sbm_store
+    from tpu_sage_torch.dist import mesh
+    from tpu_sage_torch.dist.data_parallel import DataParallelTrainer
+    from tpu_sage_torch.dist.debug import assert_replicas_equal, tree_fingerprint
+    from tpu_sage_torch.dist.halo import all_gather_rows
+    from tpu_sage_torch.dist.train import PartitionedTrainer
+    from tpu_sage_torch.dist.unsupervised import PartitionedUnsupervisedTrainer
+    from tpu_sage_torch.nn.full_graph import embed_all_nodes, embed_all_nodes_partitioned
+    from tpu_sage_torch.train.trainer import TrainConfig, build_model, fold_metric_np
+    from tpu_sage_torch.train.unsupervised import UnsupConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    me, n_ranks = mesh.rank(), mesh.world()
+    device = torch.device("cuda", torch.cuda.current_device())
+    store = bench_store()
+    recs = {}
+    nce_edges = BATCH * (2 + N_NEGATIVES) * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
+    for label, kw, unsup_kw, csr in NCE_MODES:
+        cfg = nce_config(**kw)
+        layout = mesh.layout_2d(*mesh.host_layout()) if cfg.halo == "hier2d" else None
+        t0 = time.perf_counter()
+        tr, graph, fold_ids, fold_w = PartitionedUnsupervisedTrainer.from_store(
+            store, cfg, UnsupConfig(WALK_LENGTH, N_NEGATIVES, **unsup_kw), device, csr=csr,
+            layout=layout)
+        state = tr.init_state()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        mode = "csr" if csr else tr.halo_mode
+        rec = _profiled_run(torch, np, f"nce {label}",
+                            lambda: tr.train_step(state, graph, fold_ids, fold_w)[1],
+                            NCE_STEPS, NCE_WARMUP, nce_dist_per_step(mode, n_ranks), nce_edges)
+        rec.update(mode=label, halo=tr.halo_mode, world=n_ranks, setup_s=setup_s, csr=csr,
+                   batch_per_rank=tr.batch_per_shard, halo_measured_ms=tr.halo_timings,
+                   layout=list(layout.shape) if layout is not None else None)
+        if label == "exact":
+            ids = store.folds["val"]
+            t0 = time.perf_counter()
+            z = tr.embed_fold(state, store, ids)
+            torch.cuda.synchronize()
+            rec["embed_fold_s"] = time.perf_counter() - t0
+            if tuple(z.shape) != (len(ids), 2 * DIMS[1]) or not torch.isfinite(z).all():
+                raise AssertionError(f"embed_fold: {tuple(z.shape)}")
+            assert_replicas_equal(state.model, "params")
+            assert_replicas_equal(state.optimizer, "optimizer")
+            fps = [None] * n_ranks
+            dist.all_gather_object(fps, [float(tree_fingerprint(state.model)),
+                                         float(tree_fingerprint(state.optimizer))])
+            rec["fingerprints"] = fps
+        recs[f"nce_{label}"] = rec
+        del tr, graph, state
+        torch.cuda.empty_cache()
+
+    shape = (2, n_ranks // 2) if n_ranks >= 4 else (1, n_ranks)
+    layout = mesh.layout_2d(*shape)
+    cfg = TrainConfig.from_json(DIST_CONFIG).replace(halo="hier2d")
+    tr, graph, fold_ids, fold_w = PartitionedTrainer.from_store(store, cfg, device,
+                                                                layout=layout)
+    state = tr.init_state()
+    rec = _profiled_run(torch, np, "hier2d", lambda: tr.train_step(state, graph, fold_ids,
+                                                                  fold_w)[1],
+                        DIST_STEPS, DIST_WARMUP, dist_per_step("hier2d", n_ranks),
+                        cfg.batch_size * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1]))
+    rec.update(layout=list(shape), world=n_ranks)
+    rec["val_exact"] = tr.evaluate_exact(state, store, "val")
+    g_full, _ = tr._full_graph_shard(store)
+    sharded = all_gather_rows(embed_all_nodes_partitioned(tr.model, g_full,
+                                                          with_head=True))[:store.n_nodes]
+    if me == 0:
+        single = embed_all_nodes(tr.model, store.to_device(train=False, dtype=torch.bfloat16,
+                                                           device=device), with_head=True)
+        err, scale = (sharded - single).abs().max().item(), single.abs().max().item()
+        ids = store.folds["val"]
+        single_val = fold_metric_np(store.task, single.cpu().numpy()[ids], store.targets[ids])
+        if not (err <= EXACT_TOL["bfloat16"] * scale and abs(single_val - rec["val_exact"])
+                <= 1e-3):
+            raise AssertionError(f"hier2d exact pass: max abs err {err} (scale {scale}); val "
+                                 f"{rec['val_exact']} vs {single_val}")
+        rec.update(exact_vs_single_max_abs_err=err, exact_scale=scale,
+                   val_exact_single_device=single_val)
+        del single
+    assert_replicas_equal(state.model, "hier2d params")
+    recs["hier2d"] = rec
+    del tr, graph, state, g_full, sharded
+    torch.cuda.empty_cache()
+
+    m_axis = 2 if n_ranks % 2 == 0 else 1
+    tp_store = store if m_axis == 1 else sbm_store(**{**REDDIT_SBM, "n_classes": TP_CLASSES})
+    tcfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                       output_dims=DIMS, compute_dtype="bfloat16", lr_init=0.01)
+    model = build_model(tcfg, tp_store.n_nodes, tp_store.n_classes, tp_store.feat_dim)
+    tr = DataParallelTrainer(model, tcfg, steps_per_epoch=1, task=tp_store.task,
+                             model_axis="model",
+                             layout=mesh.layout_2d(n_ranks // m_axis, m_axis))
+    graph = tp_store.to_device(train=True, dtype=torch.bfloat16, device=device)
+    state = tr.init_state(graph)
+    perm = np.random.default_rng(7).permutation(tp_store.folds["train"])
+    it = iter(torch.as_tensor(perm, dtype=torch.int32, device=device).split(BATCH))
+
+    def tp_step():
+        ids = next(it)
+        return tr.train_step(state, graph, ids, graph.targets[ids.long()])[1]
+
+    rec = _profiled_run(torch, np, "tensor parallel", tp_step, TP_STEPS, DIST_WARMUP, PER_STEP,
+                        BATCH * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1]))
+    rec.update(layout=[n_ranks // m_axis, m_axis], world=n_ranks, n_classes=tp_store.n_classes,
+               store="bench_store()" if m_axis == 1 else f"Reddit-shaped SBM, "
+               f"{TP_CLASSES} classes", local_kernel_shapes={
+                   k: list(p.shape) for k, p in model.named_parameters() if p.ndim == 2})
+    recs["tensor_parallel"] = rec
+    with open(os.path.join(out_dir, f"rank{me}.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def multi_gpu_entry_points(torch, np, tmp):
+    """Phase 11 (f): ``tpu_sage_torch.cli.main --partitioned --unsupervised``
+    at phase 11's configuration on the 232,965-node store for 1 epoch with a
+    checkpoint (``--no-eval``), resumed to 2 with the probe (it must start
+    at epoch 1); ``--partitioned --halo hier2d`` with
+    configs/ogbn_products_dist.json for 1 epoch; ``tpu_sage_torch.export.main
+    --partitioned`` of the unsupervised checkpoint's embeddings against the
+    single-device export (within EXACT_TOL), and with ``--coordinator
+    127.0.0.1:<free port> --num-processes 1 --process-id 0``, bitwise the
+    single-device export. Returns the launch counts of each."""
+    import os
+    import socket
+
+    from tpu_sage_torch import cli, export, kernels
+
+    ck, logp = os.path.join(tmp, "nce.npz"), os.path.join(tmp, "nce.jsonl")
+    graph = ["--synthetic", "reddit-shaped", "--synthetic-nodes", str(SERVING_NODES)]
+    base = graph + ["--compute-dtype", "bfloat16", "--batch-size", str(BATCH),
+                    "--n-train-samples", "25,10", "--n-val-samples", "25,10", "--output-dims",
+                    "128,128", "--partitioned", "--unsupervised", "--walk-length",
+                    str(WALK_LENGTH), "--n-negatives", str(N_NEGATIVES), "--checkpoint-path",
+                    ck, "--checkpoint-every", "1", "--log-path", logp]
+    by_path, walls = {}, {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for epochs, extra in ((1, ["--no-eval"]), (2, [])):
+        if cli.main(base + ["--epochs", str(epochs)] + extra) != 0:
+            raise AssertionError(f"the partitioned NCE CLI run to {epochs} epochs failed")
+    torch.cuda.synchronize()
+    walls["nce_cli"] = time.perf_counter() - t0
+    by_path["nce_cli"] = kernels.launch_counts()
+    with open(logp) as f:
+        recs = [json.loads(line) for line in f]
+    resumed = [r for r in recs if "resumed_from" in r]
+    epochs = [r for r in recs if "unsup_loss" in r]
+    probe = [r["probe_val_accuracy"] for r in recs if "probe_val_accuracy" in r]
+    if (len(resumed) != 1 or resumed[0]["start_epoch"] != 1
+            or [r["epoch"] for r in epochs] != [0, 1]
+            or not np.isfinite([r["unsup_loss"] for r in epochs]).all()
+            or len(probe) != 1 or not 0 <= probe[0] <= 1):
+        raise AssertionError(f"partitioned NCE CLI records {recs}")
+    # one card: the ranks run in this process, whose counters see them
+    want = nce_dist_per_step("exact", 1)
+    if torch.cuda.device_count() == 1 and any(
+            (by_path["nce_cli"][k] == 0) != (want[k] == 0) for k in want):
+        raise AssertionError(f"partitioned NCE CLI launches {by_path['nce_cli']}")
+    log(f"  CLI --partitioned --unsupervised: epochs (epoch, loss) "
+        f"{[(r['epoch'], round(r['unsup_loss'], 4)) for r in epochs]}, resumed at epoch 1, "
+        f"probe {probe[0]:.4f}, {walls['nce_cli']:.1f} s")
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    hlog = os.path.join(tmp, "hier2d.jsonl")
+    if cli.main(["--config", DIST_CONFIG] + graph + ["--partitioned", "--halo", "hier2d",
+                                                    "--epochs", "1", "--log-path", hlog]) != 0:
+        raise AssertionError("the hier2d CLI run failed")
+    torch.cuda.synchronize()
+    walls["hier2d_cli"] = time.perf_counter() - t0
+    by_path["hier2d_cli"] = kernels.launch_counts()
+    with open(hlog) as f:
+        recs = [json.loads(line) for line in f]
+    head = next(r for r in recs if "n_shards" in r and "epoch" not in r)
+    ep = [r for r in recs if "train_loss" in r]
+    if head["halo"] != "hier2d" or len(ep) != 1 or not np.isfinite(ep[0]["train_loss"]):
+        raise AssertionError(f"hier2d CLI records {recs}")
+    log(f"  CLI --partitioned --halo hier2d: {head}, epoch {ep[0]}, {walls['hier2d_cli']:.1f} s")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = {}
+    for label, extra in (("nce_export", ["--partitioned"]), ("single_export", []),
+                         ("multihost_export", ["--coordinator", f"127.0.0.1:{port}",
+                                               "--num-processes", "1", "--process-id", "0"])):
+        out = os.path.join(tmp, f"{label}.npy")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        if export.main(graph + ["--checkpoint", ck, "--checkpoint-config", "--out", out]
+                       + extra) != 0:
+            raise AssertionError(f"{label} failed")
+        walls[label] = time.perf_counter() - t0
+        by_path[label] = kernels.launch_counts()
+        outs[label] = np.load(out)
+    a, b = outs["nce_export"], outs["single_export"]
+    err = float(np.abs(a - b).max())
+    if a.shape != (SERVING_NODES, 2 * DIMS[1]) or not np.isfinite(a).all() or \
+            err > EXACT_TOL["float32"] * float(np.abs(b).max()):
+        raise AssertionError(f"partitioned export of embeddings {a.shape}: max abs err {err}")
+    if not np.array_equal(outs["multihost_export"], b):
+        raise AssertionError("export with --num-processes 1 differs from the plain export")
+    log(f"  export --partitioned of the NCE checkpoint's embeddings {a.shape} in "
+        f"{walls['nce_export']:.2f} s: max abs err {err:.3g} against the single-device export "
+        f"({walls['single_export']:.2f} s); --coordinator 127.0.0.1:{port} --num-processes 1 "
+        f"bitwise it ({walls['multihost_export']:.2f} s)")
+    del by_path["single_export"]
+    return by_path
+
+
+def multi_gpu_scaling(np):
+    """Phase 11 (g): ``python3 -m tpu_sage_torch.bench.scaling`` over 1, 2,
+    4 ranks, capped at the visible cards; each line's efficiency is finite
+    and the first is 1."""
+    import torch
+
+    counts = ",".join(str(c) for c in (1, 2, 4) if c <= torch.cuda.device_count())
+    out = subprocess.run([sys.executable, "-m", "tpu_sage_torch.bench.scaling", "--devices",
+                          counts], capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"bench.scaling exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-6000:]}")
+    recs = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    if [r["n_devices"] for r in recs] != [int(c) for c in counts.split(",")] or \
+            recs[0]["efficiency"] != 1.0 or not np.isfinite([r["ms_per_step"] for r in recs]).all():
+        raise AssertionError(f"bench.scaling records {recs}")
+    log(json.dumps({"scaling": recs}))
+
+
+def phase_multi_gpu(torch, np, store, graph, smi, peaks):
+    """Phase 11: the rest of the multi-GPU path. (a) kernels at its shapes;
+    (b) world-1 equivalences; (c)-(e) one spawned NCCL rank per visible
+    card: partitioned NCE in every mode, hier2d supervised training and
+    tensor parallelism; (f) the entry points; (g) the scaling harness.
+    Returns the timed cases and the launch counts by path."""
+    import os
+    import tempfile
+
+    from tpu_sage_torch.dist import mesh
+
+    results = multi_gpu_kernel_cases(torch, graph, peaks)
+    multi_gpu_world1(torch, np, store, graph)
+    world = torch.cuda.device_count()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mesh.spawn(multi_gpu_rank, world, "cuda", (tmp,))
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for label, rec in ranks[0].items():
+            by_path[label] = rec["launches"]
+            log(f"  {label}: {rec['ms_per_step']:.3f} ms/step, device "
+                f"{rec['device_kernel_ms_per_step']:.3f} ms/step (and NCCL "
+                f"{rec['nccl_kernel_ms_per_step']:.3f}), busy "
+                f"{(rec['device_busy_share'] or 0) * 100:.1f} %, {rec['edges_per_s'] / 1e6:.1f} M "
+                f"sampled edges/s, loss {rec['loss_first']:.4f} -> {rec['loss_last']:.4f}, "
+                f"launches per step {rec['launches_per_step']}")
+        log(f"  tensor parallel over (data, model) = {tuple(ranks[0]['tensor_parallel']['layout'])}"
+            f" on {ranks[0]['tensor_parallel']['store']} ({ranks[0]['tensor_parallel']['n_classes']}"
+            f" classes), local kernels {ranks[0]['tensor_parallel']['local_kernel_shapes']}")
+        log(json.dumps({"multi_gpu_runs": list(ranks[0].values()), "spawn_wall_s": spawn_s}))
+        log(f"  replica fingerprints (params, optimizer) by rank: "
+            f"{ranks[0]['nce_exact']['fingerprints']}")
+        by_path.update(multi_gpu_entry_points(torch, np, tmp))
+    multi_gpu_scaling(np)
+    log(smi)
+    return results, by_path
+
+
 def main() -> int:
     import torch
 
@@ -2474,6 +3041,11 @@ def main() -> int:
     dist_results, dist_paths = phase_dist(torch, np, store, graph, smi, peaks)
     results += dist_results
     by_path.update(dist_paths)
+    phase("phase 11: the rest of the multi-GPU path (partitioned NCE, hier2d, tensor "
+          "parallelism, multi-host export, scaling)")
+    mg_results, mg_paths = phase_multi_gpu(torch, np, store, graph, smi, peaks)
+    results += mg_results
+    by_path.update(mg_paths)
     phase(None)
 
     kernels_line = []
@@ -2496,6 +3068,8 @@ def main() -> int:
             "launches_per_step_fused_first_layer": FUSED_PER_STEP[name_k],
             "launches_per_step_partitioned": dist_per_step("exact",
                                                            torch.cuda.device_count())[name_k],
+            "launches_per_step_partitioned_nce": nce_dist_per_step(
+                "exact", torch.cuda.device_count())[name_k],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": step("ms"), "plain_ms": step("plain_ms"), "bound_ms": step("bound_ms"),
             "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)

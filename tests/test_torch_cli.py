@@ -177,17 +177,30 @@ def test_partitioned_flag_runs_at_world_1(capsys, flag, config):
 
 
 def test_partitioned_unsupervised_exits_2_naming_item_14(capsys):
-    """The partitioned unsupervised loop belongs to item 14, whatever item
-    ported the single-device one."""
-    assert main(TINY + ["--epochs", "1", "--partitioned", "--unsupervised"]) == 2
-    assert "--partitioned --unsupervised is not ported yet (ROADMAP Queue 1 item 14)" in \
-        capsys.readouterr().err
+    """Exited 2 naming ROADMAP Queue 1 item 14 until that item's last slice;
+    now ``--partitioned --unsupervised`` trains the NCE objective on one
+    rank in this process: one shard, the exact exchange, a finite NCE loss
+    per epoch and the probe on the partitioned embeddings."""
+    assert main(TINY + ["--epochs", "2", "--partitioned", "--unsupervised",
+                        "--walk-length", "2", "--n-negatives", "4"]) == 0
+    recs = _capture(capsys)
+    assert {"n_shards": 1, "halo": "exact"} in recs
+    epochs = [r for r in recs if "unsup_loss" in r]
+    assert [r["epoch"] for r in epochs] == [0, 1] and all(r["n_shards"] == 1 for r in epochs)
+    assert np.isfinite([r["unsup_loss"] for r in epochs]).all()
+    assert 0.0 <= recs[-1]["probe_val_accuracy"] <= 1.0
 
 
 def test_halo_hier2d_exits_2_naming_item_14(capsys):
-    """The hierarchical exchange over a 2-D (host, chip) layout is not ported."""
-    assert main(TINY + ["--epochs", "1", "--partitioned", "--halo", "hier2d"]) == 2
-    assert "--halo hier2d is not ported yet (ROADMAP Queue 1 item 14)" in capsys.readouterr().err
+    """Exited 2 naming ROADMAP Queue 1 item 14 until that item's last slice;
+    now ``--halo hier2d`` trains over the group's (host, chip) layout, (1,
+    1) for one rank in this process."""
+    assert main(TINY + ["--epochs", "1", "--partitioned", "--halo", "hier2d"]) == 0
+    recs = _capture(capsys)
+    assert recs[0]["config"]["halo"] == "hier2d"
+    assert {"n_shards": 1, "halo": "hier2d", "layout": [1, 1]} in recs
+    epochs = [r for r in recs if "train_loss" in r]
+    assert len(epochs) == 1 and np.isfinite(epochs[0]["train_loss"])
 
 
 @pytest.mark.parametrize("flag", ["--unsupervised", "--fuse-first-layer"])

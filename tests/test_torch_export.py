@@ -124,11 +124,25 @@ def test_partitioned_export_matches_single_device(checkpoints, capsys, kind):
 @pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num-processes", "2"], ["--process-id", "0"]],
                          ids=lambda f: f[0])
-def test_unported_flags_exit_2(tmp_path, capsys, flag):
-    argv = GRAPH + ["--checkpoint", str(tmp_path / "c.npz"), "--out", str(tmp_path / "o.npy"),
-                    "--device", "cpu"] + flag
-    assert port_export(argv) == 2
-    assert "ROADMAP Queue 1 item 14" in capsys.readouterr().err
+def test_unported_flags_exit_2(checkpoints, capsys, flag):
+    """Each flag exited 2 naming ROADMAP Queue 1 item 14 until that item's
+    last slice; now the three bring up a multi-host group, with the JAX
+    package's meaning (tests/test_torch_dist_multihost.py runs two
+    processes). Alone, ``--num-processes 2`` lacks the coordinator and the
+    process id and exits 2; ``--coordinator`` or ``--process-id`` alone is
+    one process (``init_multihost`` is a no-op), and the export is the plain
+    one, bitwise."""
+    tmp, ckpts = checkpoints
+    common = GRAPH + ["--checkpoint", str(ckpts["port"]), "--chunk", "64",
+                      "--checkpoint-config", "--device", "cpu"]
+    assert port_export(common + ["--out", str(tmp / "plain.npy")]) == 0
+    out = tmp / f"flag{flag[0]}.npy"
+    rc = port_export(common + ["--out", str(out)] + flag)
+    if flag[0] == "--num-processes":
+        assert rc == 2 and "--num-processes > 1 needs --coordinator" in capsys.readouterr().err
+    else:
+        assert rc == 0
+        np.testing.assert_array_equal(np.load(out), np.load(tmp / "plain.npy"))
 
 
 def test_cuda_without_a_card_exits_2(tmp_path, capsys):

@@ -17,6 +17,11 @@ Usage::
     python -m torch.distributed.run --standalone --nproc_per_node 2 \\
         -m tpu_sage_torch.cli --synthetic sbm --partitioned --device cpu
 
+    # the hierarchical exchange over a (host, chip) layout: torchrun's
+    # --nnodes hosts of --nproc_per_node ranks each
+    python -m torch.distributed.run --nnodes 2 --nproc_per_node 2 ... \\
+        -m tpu_sage_torch.cli --synthetic sbm --partitioned --halo hier2d
+
 The run is on the CUDA card unless ``--device cpu`` is given; without a card
 ``--device cuda`` exits 2, and nothing falls back to the CPU.
 ``--unsupervised`` trains with the NCE objective
@@ -26,10 +31,12 @@ step (``nn/fused.py``). ``--partitioned`` trains node-sharded
 (``dist/train.py::fit_partitioned``) with the ``--halo*`` exchange settings:
 under torchrun its environment gives the ranks; otherwise the run spawns one
 rank per visible card (start method ``spawn``; a single rank runs in this
-process), and on ``--device cpu`` runs one rank. ``--reorder`` relabels the
-nodes before partitioning, for as many shards as the run has ranks.
-``--partitioned --unsupervised`` and ``--halo hier2d`` exit 2 naming ROADMAP
-Queue 1 item 14. ``--gather-form``, ``--gather-form-deep`` and
+process), and on ``--device cpu`` runs one rank. ``--partitioned
+--unsupervised`` trains the NCE objective node-sharded
+(``dist/unsupervised.py::fit_unsupervised_partitioned``); ``--halo hier2d``
+exchanges over the group's ``(host, chip)`` layout, one row per host.
+``--reorder`` relabels the nodes before partitioning, for as many shards as
+the run has ranks. ``--gather-form``, ``--gather-form-deep`` and
 ``--gather-chunks`` go into the config and change nothing on the port. The
 reference's capacity advice on running out of device memory is not ported
 (ROADMAP Queue 1 item 15): the error propagates.
@@ -102,7 +109,8 @@ def parse_args(argv=None):
                              "bucketed", "hier2d"],
                     help="halo-exchange implementation for --partitioned (default "
                          "auto = exact; 'measured' races exact/ring/pipelined at "
-                         "startup; hier2d is not ported yet)")
+                         "startup, exact/hier2d on a (host, chip) layout; hier2d "
+                         "reduces within each host before across hosts)")
     ap.add_argument("--halo-capacity-factor", type=float, default=None,
                     help="bucketed-halo capacity factor (default 2.0)")
     ap.add_argument("--halo-chunks", type=int, default=None,
@@ -160,17 +168,6 @@ def _parse_ints(s: str):
     return tuple(int(x) for x in s.split(",") if x.strip())
 
 
-def _unported_flag(args):
-    """``(flags, ROADMAP Queue 1 item)`` of the first combination given whose
-    path is not ported yet, else None."""
-    for given, flag, item in (
-            (args.partitioned and args.unsupervised, "--partitioned --unsupervised", 14),
-            (args.halo == "hier2d", "--halo hier2d", 14)):
-        if given:
-            return flag, item
-    return None
-
-
 def cuda_missing(device: str) -> bool:
     """True, after printing why, when ``device`` is cuda and there is no card."""
     import torch
@@ -196,12 +193,6 @@ def main(argv=None):
             file=sys.stderr,
         )
         return 2
-    unported = _unported_flag(args)
-    if unported:
-        print(f"error: {unported[0]} is not ported yet (ROADMAP Queue 1 item {unported[1]})",
-              file=sys.stderr)
-        return 2
-
     # late imports keep --help fast
     import torch
 
@@ -235,10 +226,13 @@ def main(argv=None):
     return _run(args, raw_argv)
 
 
-def run_ranks(fn, device: str, args: tuple) -> int:
+def run_ranks(fn, device: str, args: tuple, hosts=None) -> int:
     """Run ``fn(*args)`` on every rank of a process group: torchrun's (this
     process is one of them), else one rank per visible card spawned from
-    here (a single rank runs in this process), or one CPU rank."""
+    here (a single rank runs in this process), or one CPU rank. ``hosts``
+    ``(coordinator, n_processes, process_id)``: this host's ranks of a
+    multi-host ``tcp://coordinator`` group, global rank ``process_id ·
+    n_local + local``."""
     import torch
 
     from tpu_sage_torch.dist import mesh
@@ -250,6 +244,15 @@ def run_ranks(fn, device: str, args: tuple) -> int:
         finally:
             mesh.destroy_process_group()
     n = torch.cuda.device_count() if device == "cuda" else 1
+    if hosts is not None:
+        coordinator, n_proc, pid = hosts
+        method = f"tcp://{coordinator}"
+        if n == 1:
+            return mesh.run_in_process(fn, device, args, rank=pid, world_size=n_proc,
+                                       init_method=method)
+        mesh.spawn(fn, n_proc * n, device, args, init_method=method, n_local=n,
+                   rank_base=pid * n)
+        return 0
     if n == 1:
         return mesh.run_in_process(fn, device, args)
     mesh.spawn(fn, n, device, args)
@@ -392,7 +395,17 @@ def _run_fit(args, problem, config, log):
     from tpu_sage_torch.dist.mesh import rank
     from tpu_sage_torch.train.checkpoint import save_checkpoint
 
-    if args.partitioned:
+    if args.partitioned and args.unsupervised:
+        from tpu_sage_torch.dist.unsupervised import fit_unsupervised_partitioned
+        from tpu_sage_torch.train.unsupervised import UnsupConfig
+
+        _, state, _ = fit_unsupervised_partitioned(
+            problem.store, config,
+            UnsupConfig(walk_length=args.walk_length, n_negatives=args.n_negatives,
+                        probe_every=args.probe_every),
+            log=log, resume_from=args.checkpoint_path, checkpoint_every=args.checkpoint_every,
+            probe=not args.no_eval, csr=args.csr_adjacency, device=None)
+    elif args.partitioned:
         from tpu_sage_torch.dist.train import fit_partitioned
 
         _, state, _ = fit_partitioned(

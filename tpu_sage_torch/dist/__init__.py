@@ -11,7 +11,8 @@ up and down, ``debug`` compares the replicas.
 
 The JAX package runs these as ``shard_map`` programs over a device mesh in
 one process; here each rank is a process bound to one card (NCCL) or to the
-CPU (gloo). Not ported yet (ROADMAP Queue 1 item 14): the partitioned
-unsupervised loop, the hierarchical ``hier2d`` exchange over a 2-D
-``(host, chip)`` layout, tensor-parallel ``model_axis``.
+CPU (gloo). ``unsupervised`` trains the NCE objective on the same shards;
+``mesh.Layout2D`` lays the ranks out as a 2-D grid for the hierarchical
+``hier2d`` exchange (``(host, chip)``) and for tensor parallelism (``(data,
+model)``).
 """

@@ -33,8 +33,13 @@ returns, for the same shard-local tables and ids, what the JAX package's
   tensor; ``dist_sample_csr_owner_select`` moves the sampling hop's column
   pick to the owner and ships ``fanout + 1`` ints per query.
 
-Not ported yet (ROADMAP Queue 1 item 14): ``dist_gather_2d``, the
-hierarchical exchange over a 2-D ``(host, chip)`` layout.
+- ``dist_gather_2d`` (``hier2d``): over a 2-D ``(host, chip)`` layout
+  (``mesh.Layout2D``), the ids all-gathered over the rank's host column,
+  then over its chip row (the ``(C, H, q)`` queries), one owner answer of
+  them all, then the answers reduced within the host (over the chip row)
+  before across hosts (over the host column), each reduction an
+  ``all_to_all_single`` and a sum in rank order. Bitwise ``dist_gather``;
+  with ``fanout`` the owners' f32 partial means, summed in two stages.
 
 Collectives move bf16 and int8 tensors as they are (NCCL and gloo both take
 them). At world 1 every collective still runs (through NCCL on the card),
@@ -59,20 +64,30 @@ from tpu_sage_torch.sample.csr import gather_window_pair
 _all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
-def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """``(world·q, ...)``: every rank's ``x (q, ...)`` in rank order."""
-    out = torch.empty((world() * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
-    _all_gather(out, x.contiguous())
+def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``(n·q, ...)``: every rank's ``x (q, ...)`` in rank order, over the
+    ``n`` ranks of ``group`` (default: the world)."""
+    n = dist.get_world_size(group)
+    out = torch.empty((n * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _all_gather(out, x.contiguous(), group=group)
     return out
 
 
-def exchange(send: torch.Tensor) -> torch.Tensor:
+def exchange(send: torch.Tensor, group=None) -> torch.Tensor:
     """``all_to_all_single`` in equal parts along dim 0: block ``s`` of
-    ``send`` goes to rank ``s``; block ``s`` of the result came from rank
-    ``s``."""
+    ``send`` goes to rank ``s`` of ``group`` (default: the world); block
+    ``s`` of the result came from rank ``s``."""
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send.contiguous())
+    dist.all_to_all_single(recv, send.contiguous(), group=group)
     return recv
+
+
+def reduce_scatter(parts: torch.Tensor, group=None) -> torch.Tensor:
+    """Block ``s`` of ``parts (n·k, ...)`` summed over the ``n`` ranks of
+    ``group`` onto its rank ``s``, in rank order: ``(k, ...)``. gloo has
+    no ``reduce_scatter``, so it is an exchange and a sum."""
+    n = dist.get_world_size(group)
+    return rank_sum(exchange(parts, group).view(n, parts.shape[0] // n, *parts.shape[1:]))
 
 
 def rank_sum(parts: torch.Tensor) -> torch.Tensor:
@@ -156,7 +171,6 @@ def dist_sample_csr_owner_select(
     fanout + 1)`` int32, the values bitwise those of the pair answers."""
     m = degrees.shape[0]
     offset = shard_offset(m)
-    fanout = u.shape[1]
     packed = torch.cat([ids.to(torch.int32)[:, None], u.contiguous().view(torch.int32)], dim=1)
     allp = all_gather_rows(packed)
     all_ids, all_u = allp[:, 0], allp[:, 1:].contiguous().view(torch.float32)
@@ -167,8 +181,7 @@ def dist_sample_csr_owner_select(
     cols = hop_columns(all_u, r_deg.clamp_min(1))
     pair, off, _ = gather_window_pair(indptr, indices, local_idx, window)
     vals = select_columns(pair, (off[:, None] + cols).contiguous())
-    out = torch.where(owned, torch.cat([vals, r_deg[:, None]], dim=1), 0)
-    return rank_sum(exchange(out).view(world(), ids.shape[0], fanout + 1))
+    return reduce_scatter(torch.where(owned, torch.cat([vals, r_deg[:, None]], dim=1), 0))
 
 
 def dist_gather(local_table, ids: torch.Tensor) -> torch.Tensor:
@@ -176,8 +189,7 @@ def dist_gather(local_table, ids: torch.Tensor) -> torch.Tensor:
     each equal to ``global_table[ids]`` (zero rows for ids no rank owns)."""
     m = local_table.shape[0]
     all_ids = all_gather_rows(ids.to(torch.int32))
-    answers = owner_rows(local_table, all_ids - shard_offset(m))
-    return rank_sum(exchange(answers).view(world(), ids.shape[0], *answers.shape[1:]))
+    return reduce_scatter(owner_rows(local_table, all_ids - shard_offset(m)))
 
 
 def dist_gather_fanout_mean(local_table: torch.Tensor, ids: torch.Tensor,
@@ -188,8 +200,29 @@ def dist_gather_fanout_mean(local_table: torch.Tensor, ids: torch.Tensor,
     partial means, ``fanout×`` less than the rows."""
     m = local_table.shape[0]
     all_ids = all_gather_rows(ids.to(torch.int32))
-    partial = gather_fanout_mean_owned(local_table, all_ids, fanout, shard_offset(m))
-    return rank_sum(exchange(partial).view(world(), ids.shape[0] // fanout, -1))
+    return reduce_scatter(gather_fanout_mean_owned(local_table, all_ids, fanout,
+                                                   shard_offset(m)))
+
+
+def dist_gather_2d(local_table, ids: torch.Tensor, layout,
+                   fanout: Optional[int] = None) -> torch.Tensor:
+    """Hierarchical exact gather over a ``(host, chip)`` layout
+    (``mesh.Layout2D``; global shard ``host·n_chips + chip``): the ids are
+    all-gathered over the host column, then over the chip row, so every
+    rank holds the ``(C, H, q)`` queries; it answers those it owns (zero
+    rows elsewhere) in one launch; the answers are reduced within the host
+    (over the chip row) and then across hosts (over the host column), so
+    each rank ends with its own ``(q, w)`` rows, bitwise ``dist_gather``'s.
+    With ``fanout`` the owner answers per-root f32 partial means
+    (``gather_fanout_mean_owned``) and ``(q/fanout, d)`` means come back."""
+    m = local_table.shape[0]
+    ids_h = all_gather_rows(ids.to(torch.int32), layout.outer_group)     # (H·q,)
+    all_ids = all_gather_rows(ids_h, layout.inner_group)                  # (C·H·q,)
+    if fanout is None:
+        answers = owner_rows(local_table, all_ids - shard_offset(m))
+    else:
+        answers = gather_fanout_mean_owned(local_table, all_ids, fanout, shard_offset(m))
+    return reduce_scatter(reduce_scatter(answers, layout.inner_group), layout.outer_group)
 
 
 def _rotate(tensors: List[torch.Tensor]) -> List[torch.Tensor]:

@@ -19,6 +19,11 @@ every rank:
    flattened gradient buffer (the loss and the overflow count ride in it),
    and the same Adam update on every rank, so the replicas stay equal.
 
+Over a 2-D ``(host, chip)`` layout (``mesh.Layout2D``) the ``hier2d`` mode
+reduces each exchange within the host before across hosts
+(``halo.dist_gather_2d``); the shard of rank ``host·n_chips + chip`` is the
+same as on the flat layout, so batches, losses and checkpoints agree.
+
 The JAX package compiles this as one ``shard_map`` program per step or per
 scanned epoch; here each rank runs it eagerly and its kernels are the port's
 (``gather_rows`` for every owner's answers, ``gather_fanout_mean_owned`` for
@@ -42,11 +47,12 @@ import torch
 import torch.distributed as dist
 
 from tpu_sage_torch.dist.halo import (CSRPairRows, all_gather_rows, dist_gather,
-                                      dist_gather_bucketed, dist_gather_fanout_mean,
-                                      dist_gather_ring, dist_gather_ring_fanout_mean,
+                                      dist_gather_2d, dist_gather_bucketed,
+                                      dist_gather_fanout_mean, dist_gather_ring,
+                                      dist_gather_ring_fanout_mean,
                                       dist_gather_ring_pipelined,
                                       dist_sample_csr_owner_select)
-from tpu_sage_torch.dist.mesh import rank, world
+from tpu_sage_torch.dist.mesh import Layout2D, host_layout, layout_2d, rank, world
 from tpu_sage_torch.dist.partition import (shard_fold, shard_fold_masked, shard_graph,
                                            shard_graph_csr)
 from tpu_sage_torch.graph.graph_data import GraphStore
@@ -75,8 +81,9 @@ def rng_seed(seed: int, stream: int, epoch: int, shard: int) -> int:
 def resolve_halo_mode(mode: str, n_shards: int) -> str:
     """The config's halo mode as a concrete exchange: ``auto`` is ``exact``
     (the JAX package's measured default at every shard count); explicit
-    modes pass through; ``measured`` is resolved by ``from_store`` and
-    ``fit_partitioned``; ``hier2d`` is not ported yet."""
+    modes pass through (``hier2d`` needs a 2-D layout, which the trainer
+    checks); ``measured`` is resolved by ``from_store`` and
+    ``fit_partitioned``."""
     if mode not in HALO_MODES:
         raise ValueError(f"unknown halo mode {mode!r}; valid choices: {', '.join(HALO_MODES)}")
     if mode == "measured":
@@ -84,16 +91,27 @@ def resolve_halo_mode(mode: str, n_shards: int) -> str:
             "halo='measured' is resolved by PartitionedTrainer.from_store / "
             "fit_partitioned (timing the candidates needs the sharded graph); build "
             "through from_store, or pass a concrete mode")
-    if mode == "hier2d":
-        raise ValueError("halo='hier2d' (the 2-D (host, chip) exchange) is not ported yet "
-                         "(ROADMAP Queue 1 item 14)")
     return "exact" if mode == "auto" else mode
 
 
-def halo_candidates(n_shards: int) -> List[str]:
+def halo_candidates(n_shards: int, two_d: bool = False) -> List[str]:
     """The modes ``halo='measured'`` races: exact, ring and pipelined, never
-    bucketed (its overflow changes values); at one shard only exact."""
-    return ["exact"] if n_shards == 1 else ["exact", "ring", "pipelined"]
+    bucketed (its overflow changes values); on a 2-D ``(host, chip)``
+    layout exact and hier2d (a ring is defined on one axis); at one shard
+    only exact."""
+    if n_shards == 1:
+        return ["exact"]
+    return ["exact", "hier2d"] if two_d else ["exact", "ring", "pipelined"]
+
+
+def resolve_layout(config: TrainConfig, layout: Optional[Layout2D]) -> Optional[Layout2D]:
+    """``halo='hier2d'`` with no layout given builds the group's own
+    ``(host, chip)`` layout (``mesh.host_layout``: one row per host), as the
+    JAX package's ``resolve_mesh_axis`` builds one host row per process;
+    otherwise the given layout (None: flat)."""
+    if layout is None and config.halo == "hier2d":
+        return layout_2d(*host_layout())
+    return layout
 
 
 def resolve_measure_steps(n_steps: Optional[int], device: torch.device) -> int:
@@ -169,16 +187,20 @@ def _mean_rows(rows: torch.Tensor, fanout: int) -> torch.Tensor:
     return acc * reciprocal(fanout)
 
 
-def make_gather(mode: str, n_shards: int, capacity_factor: float):
+def make_gather(mode: str, n_shards: int, capacity_factor: float,
+                layout: Optional[Layout2D] = None):
     """The halo exchange for one level: ``fn(table, ids) -> (rows,
     n_overflow)``, the overflow 0 but for ``bucketed`` (``capacity =
-    max(1, int(capacity_factor · q / n_shards))``). The reference's
-    ``halo_chunks`` (a TPU descriptor-stream knob that changes no value) has
-    no counterpart: the port does not split the exchange."""
+    max(1, int(capacity_factor · q / n_shards))``); ``hier2d`` over
+    ``layout``. The reference's ``halo_chunks`` (a TPU descriptor-stream knob
+    that changes no value) has no counterpart: the port does not split the
+    exchange."""
     if mode == "exact":
         return lambda table, ids: (dist_gather(table, ids), _zero(ids))
     if mode in ("ring", "pipelined"):
         return lambda table, ids: (dist_gather_ring(table, ids), _zero(ids))
+    if mode == "hier2d":
+        return lambda table, ids: (dist_gather_2d(table, ids, layout), _zero(ids))
     if mode != "bucketed":
         raise ValueError(f"no flat halo exchange named {mode!r}")
 
@@ -189,7 +211,8 @@ def make_gather(mode: str, n_shards: int, capacity_factor: float):
     return bucketed
 
 
-def make_gather_last(mode: str, n_shards: int, capacity_factor: float = 2.0):
+def make_gather_last(mode: str, n_shards: int, capacity_factor: float = 2.0,
+                     layout: Optional[Layout2D] = None):
     """The deepest level's exchange pre-reduced to per-root f32 means:
     ``fn(table, ids, fanout) -> (means, n_overflow)``. Bucketed routing
     answers per query, so it gathers the rows and means them at the
@@ -199,6 +222,9 @@ def make_gather_last(mode: str, n_shards: int, capacity_factor: float = 2.0):
                                            _zero(ids))
     if mode in ("ring", "pipelined"):
         return lambda table, ids, fanout: (dist_gather_ring_fanout_mean(table, ids, fanout),
+                                           _zero(ids))
+    if mode == "hier2d":
+        return lambda table, ids, fanout: (dist_gather_2d(table, ids, layout, fanout),
                                            _zero(ids))
     gather = make_gather(mode, n_shards, capacity_factor)
 
@@ -241,14 +267,15 @@ def gather_level_feats(gather, gather_last, feats, levels, fanouts, dq, gather_l
 
 
 def all_reduce_grads(params: List[torch.Tensor], extra: Sequence[torch.Tensor],
-                     divisor: int = 1) -> torch.Tensor:
-    """Sum every parameter's gradient over the ranks in place, divided by
-    ``divisor``, with the ``extra`` scalars riding in the same buffer: one
-    ``all_reduce`` per step. A missing gradient counts as zeros (optax's
-    for a parameter the loss does not reach). Returns the reduced extras."""
+                     divisor: int = 1, group=None) -> torch.Tensor:
+    """Sum every parameter's gradient over the ranks of ``group`` (default:
+    all) in place, divided by ``divisor``, with the ``extra`` scalars riding
+    in the same buffer: one ``all_reduce`` per step. A missing gradient
+    counts as zeros (optax's for a parameter the loss does not reach).
+    Returns the reduced extras."""
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
                       for p in params] + [e.detach().float().reshape(1) for e in extra])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     if divisor != 1:
         flat /= divisor
     at = 0
@@ -329,11 +356,13 @@ class PartitionedTrainer:
     """Trainer over this rank's shard of a node-sharded graph; the sibling of
     ``train/trainer.py::Trainer`` with the same config surface.
 
-    Build it with ``from_store``, inside a process group (``dist.mesh``)."""
+    Build it with ``from_store``, inside a process group (``dist.mesh``).
+    ``layout``: a 2-D ``(host, chip)`` layout of the group (``halo='hier2d'``
+    needs one); the shards and batches are those of the flat layout."""
 
     def __init__(self, model: GSSupervised, config: TrainConfig, shard_size: int,
                  steps_per_epoch: int, device: torch.device, task: str = "classification",
-                 csr_window: int = 0):
+                 csr_window: int = 0, layout: Optional[Layout2D] = None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.model = model
@@ -348,14 +377,20 @@ class PartitionedTrainer:
         self._lr_fn = make_schedule(config, steps_per_epoch)
         self.batch_per_shard = max(1, config.batch_size // self.n_shards)
         self.halo_mode = resolve_halo_mode(config.halo, self.n_shards)
+        self.layout = layout
+        if self.halo_mode == "hier2d" and layout is None:
+            raise ValueError(
+                "halo='hier2d' routes within the host before across hosts and needs a 2-D "
+                "(host, chip) layout; got the flat one: pass layout=mesh.layout_2d(n_hosts, "
+                "n_chips), or let fit_partitioned build the group's own")
         # CSR shards with the exact exchange: the column pick moves to the
         # owner, which answers fanout + 1 ints per query instead of 2w + 2
         self.owner_select_on = (csr_window > 0 and self.halo_mode == "exact"
                                 and config.csr_owner_select)
         cf = config.halo_capacity_factor
-        self.gather = make_gather(self.halo_mode, self.n_shards, cf)
+        self.gather = make_gather(self.halo_mode, self.n_shards, cf, layout)
         self.gather_last = (
-            make_gather_last(self.halo_mode, self.n_shards, cf)
+            make_gather_last(self.halo_mode, self.n_shards, cf, layout)
             if model.aggregator_class in ("mean", "gcn") and model.prep_class == "identity"
             and config.fuse_last != "off" else None)
         self.gather_levels = make_gather_levels(self.halo_mode, self.n_shards)
@@ -373,13 +408,26 @@ class PartitionedTrainer:
 
     @classmethod
     def from_store(cls, store: GraphStore, config: TrainConfig, device: str | torch.device,
-                   csr: bool = False):
+                   csr: bool = False, layout: Optional[Layout2D] = None):
         """This rank's training shard, fold row and trainer from the host
         store every rank holds. ``halo='measured'`` races the candidates here.
         Returns ``(trainer, graph, fold_ids, fold_w)``: the shard, this
         rank's ``(L,)`` fold slots on the device, every rank's true fold
         count (host, f32)."""
         device = torch.device(device)
+        graph, fold_ids, fold_w, m, spe = cls._sharded_inputs(store, config, device, csr)
+        model = build_model(config, store.n_nodes, store.n_classes, store.feat_dim)
+        kw = dict(task=store.task, csr_window=getattr(graph, "window", 0), layout=layout)
+        config, raced = cls._race(config, lambda c: cls(model, c, m, spe, device, **kw), graph,
+                                  fold_ids, fold_w, device, layout)
+        trainer = cls(model, config, m, spe, device, **kw)
+        trainer._adopt(store, graph, raced)
+        return trainer, graph, fold_ids, fold_w
+
+    @staticmethod
+    def _sharded_inputs(store: GraphStore, config: TrainConfig, device: torch.device,
+                        csr: bool):
+        """``(graph, fold_ids, fold_w, shard_size, steps_per_epoch)``."""
         cd = COMPUTE_DTYPES[config.compute_dtype]
         graph, m = (shard_graph_csr if csr else shard_graph)(
             store, train=True, device=device, feat_dtype=None if cd == torch.float32 else cd,
@@ -387,23 +435,29 @@ class PartitionedTrainer:
         fold, fold_w = shard_fold(store.folds["train"], world(), m)
         fold_ids = torch.as_tensor(fold[rank()], dtype=torch.int32, device=device)
         steps_per_epoch = max(1, len(store.folds["train"]) // config.batch_size)
-        model = build_model(config, store.n_nodes, store.n_classes, store.feat_dim)
-        window = getattr(graph, "window", 0)
-        timings = fallback = None
-        if config.halo == "measured":
-            winner, timings, fallback = measure_halo_mode(
-                lambda mode: cls(model, config.replace(halo=mode), m, steps_per_epoch, device,
-                                 task=store.task, csr_window=window),
-                lambda tr, st, n: tr.train_epoch(st, graph, fold_ids, fold_w, n_steps=n),
-                halo_candidates(world()),
-                resolve_measure_steps(config.halo_measure_steps, device))
-            config = config.replace(halo=winner)
-        trainer = cls(model, config, m, steps_per_epoch, device, task=store.task,
-                      csr_window=window)
-        trainer.halo_timings, trainer.halo_fallback = timings, fallback
-        trainer._train_store = store
-        trainer._train_feats = (graph.feats, graph.feat_scale)
-        return trainer, graph, fold_ids, fold_w
+        return graph, fold_ids, fold_w, m, steps_per_epoch
+
+    @staticmethod
+    def _race(config, make, graph, fold_ids, fold_w, device, layout):
+        """``halo='measured'``: the config with the winner of the real epochs
+        of the trainers ``make(config)`` builds (so each trainer class races
+        its own objective), and ``(timings, fallback)``; any other mode as it
+        is, with ``(None, None)``."""
+        if config.halo != "measured":
+            return config, (None, None)
+        winner, timings, fallback = measure_halo_mode(
+            lambda mode: make(config.replace(halo=mode)),
+            lambda tr, st, n: tr.train_epoch(st, graph, fold_ids, fold_w, n_steps=n),
+            halo_candidates(world(), layout is not None),
+            resolve_measure_steps(config.halo_measure_steps, device))
+        return config.replace(halo=winner), (timings, fallback)
+
+    def _adopt(self, store: GraphStore, graph, raced) -> None:
+        """Record the race and the training store, whose feature shard the
+        evaluation's full-graph shard adopts instead of uploading again."""
+        self.halo_timings, self.halo_fallback = raced
+        self._train_store = store
+        self._train_feats = (graph.feats, graph.feat_scale)
 
     def init_state(self) -> TrainState:
         """Fresh parameters from a CPU generator seeded with the config's
@@ -452,9 +506,9 @@ class PartitionedTrainer:
             ovf = ovf + o
         return levels, ovf
 
-    def forward_levels(self, graph, levels: List[torch.Tensor]):
-        """Logits of the roots ``levels[0]`` from the exchanged feature rows.
-        Returns ``(logits, n_overflow)``."""
+    def forward_levels(self, graph, levels: List[torch.Tensor], head: bool = True):
+        """Logits (``head``; else the embeddings) of the roots ``levels[0]``
+        from the exchanged feature rows. Returns ``(out, n_overflow)``."""
         feats, scale = graph.feats, graph.feat_scale
         if scale is None:
             dq = lambda rows: rows.to(feats.dtype)  # noqa: E731
@@ -464,7 +518,12 @@ class PartitionedTrainer:
         level_feats, ovf = gather_level_feats(self.gather, self.gather_last, feats, levels,
                                               fanouts, dq, gather_levels=self.gather_levels)
         lrf = fanouts[-1] if self.gather_last is not None else None
-        return self.model.forward_gathered(levels, level_feats, lrf), ovf
+        fn = self.model.forward_gathered if head else self.model.encode_gathered
+        return fn(levels, level_feats, lrf), ovf
+
+    def _seed_epoch(self, state: TrainState, epoch: int) -> None:
+        """Seed the epoch's sampling streams: the tree's."""
+        state.generator.manual_seed(rng_seed(self.config.seed, SAMPLE, epoch, rank()))
 
     def _batch_ids(self, state: TrainState, fold_ids: torch.Tensor, count: float) -> torch.Tensor:
         epoch, t = divmod(state.step, self.steps_per_epoch)
@@ -472,7 +531,7 @@ class PartitionedTrainer:
             self._perm = (epoch, epoch_perm(self.config.seed, epoch, rank(), fold_ids.shape[0],
                                             count, fold_ids.device))
         if self._sample_epoch != epoch:
-            state.generator.manual_seed(rng_seed(self.config.seed, SAMPLE, epoch, rank()))
+            self._seed_epoch(state, epoch)
             self._sample_epoch = epoch
         return perm_batch(self._perm[1], fold_ids, count, t, self.batch_per_shard)
 
@@ -605,6 +664,34 @@ class PartitionedTrainer:
         return fold_metric_np(store.task, logits[ids], store.targets[ids])
 
 
+def _rank_setup(device, log):
+    """``(device, log, lead)`` of a fit loop's rank: the rank's card under
+    NCCL, else the CPU; rank 0 logs (to stdout by default), the others not.
+    A barrier first: rank 0 writes the checkpoints while the others go on,
+    so a fit that resumes from one an earlier fit in this group wrote must
+    not read it before rank 0 is done, or the ranks resume at different
+    epochs and their collectives never meet."""
+    dist.barrier()
+    if device is None:
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if dist.get_backend() == "nccl" else torch.device("cpu"))
+    lead = rank() == 0
+    if log is None:
+        log = lambda d: print(json.dumps(d), flush=True)  # noqa: E731
+    return device, (log if lead else lambda d: None), lead
+
+
+def log_head(trainer: PartitionedTrainer, log, csr: bool) -> None:
+    """The run's first line: shards, the resolved halo mode (and the race),
+    the layout when 2-D, the CSR window."""
+    log({"n_shards": trainer.n_shards, "halo": trainer.halo_mode,
+         **({"halo_measured_ms": trainer.halo_timings} if trainer.halo_timings else {}),
+         **({"halo_measured_fallback": trainer.halo_fallback}
+            if trainer.halo_fallback else {}),
+         **({"layout": list(trainer.layout.shape)} if trainer.layout is not None else {}),
+         **({"csr_window": trainer.csr_window} if csr else {})})
+
+
 def fit_partitioned(
     store: GraphStore,
     config: TrainConfig,
@@ -614,33 +701,23 @@ def fit_partitioned(
     checkpoint_every: int = 0,
     csr: bool = False,
     device: Optional[str | torch.device] = None,
+    layout: Optional[Layout2D] = None,
 ):
     """``fit()`` for the node-sharded path, run by every rank of a process
     group: per-epoch training, one JSON line per epoch (rank 0 logs), sampled
     or exact validation (``exact_val``, thinned by ``exact_val_every``),
     ``save_best``, early stopping, ``checkpoint_every`` and resume. Rank 0
     writes the checkpoints, in the ``.npz`` layout both packages read; a run
-    resumes at the epoch after the checkpoint's step on any shard count.
-    ``device`` defaults to the rank's card under NCCL, else the CPU.
-    Returns ``(trainer, state, history)`` on every rank."""
-    if device is None:
-        device = (torch.device("cuda", torch.cuda.current_device())
-                  if dist.get_backend() == "nccl" else torch.device("cpu"))
-    lead = rank() == 0
-    if log is None:
-        log = lambda d: print(json.dumps(d), flush=True)  # noqa: E731
-    if not lead:
-        log = lambda d: None  # noqa: E731
-
-    trainer, graph, fold_ids, fold_w = PartitionedTrainer.from_store(store, config, device,
-                                                                    csr=csr)
+    resumes at the epoch after the checkpoint's step on any shard count and
+    either layout. ``device`` defaults to the rank's card under NCCL, else
+    the CPU; ``layout`` as ``resolve_layout``. Returns ``(trainer, state,
+    history)`` on every rank."""
+    device, log, lead = _rank_setup(device, log)
+    trainer, graph, fold_ids, fold_w = PartitionedTrainer.from_store(
+        store, config, device, csr=csr, layout=resolve_layout(config, layout))
     config = trainer.config
     tracker = BestTracker(config, resume_from, log, write=lead)
-    log({"n_shards": trainer.n_shards, "halo": trainer.halo_mode,
-         **({"halo_measured_ms": trainer.halo_timings} if trainer.halo_timings else {}),
-         **({"halo_measured_fallback": trainer.halo_fallback}
-            if trainer.halo_fallback else {}),
-         **({"csr_window": trainer.csr_window} if csr else {})})
+    log_head(trainer, log, csr)
 
     use_exact_val = False
     if config.exact_val:

@@ -15,9 +15,16 @@ the JAX package. Runs on the CUDA card unless ``--device cpu``.
 (``nn/full_graph.py::embed_all_nodes_partitioned``) on every rank of a
 process group, as ``cli.py --partitioned`` starts them (torchrun's ranks, or
 one per visible card, or one CPU rank); the first rank writes the same
-``.npy`` the single-device export writes. The multi-host flags
-(``--coordinator``, ``--num-processes``, ``--process-id``) exit 2 (ROADMAP
-Queue 1 item 14).
+``.npy`` the single-device export writes.
+
+Multi-host (the JAX package's ``init_multihost``): pass ``--coordinator
+host:port --num-processes N --process-id r`` on each of the ``N`` hosts'
+processes. Each process brings up its host's ranks, one per visible card
+(one on ``--device cpu``), in one ``tcp://host:port`` group, global rank
+``r·n_local + local`` (so the hosts are the rows of ``mesh.host_layout``);
+with ``--partitioned`` the ranks run the sharded pass, and process 0's first
+rank writes the output. ``--num-processes 1`` (or unset) is a single
+process: the flags change nothing.
 """
 
 from __future__ import annotations
@@ -84,9 +91,13 @@ def parse_args(argv=None):
                     help="dtype of the exported .npy; float16 halves the "
                          "device-to-host copy (cast on the device) and the file")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    ap.add_argument("--coordinator", default=None, help="multi-process export (not ported yet)")
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+    # multi-host bring-up: pass all three on every host's process
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of process 0, the group's rendezvous (tcp://)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="processes (hosts) in the export; 1 or unset: single-process")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="this process's index, 0 .. --num-processes - 1")
     # model flags (must match training) when no --config is given
     ap.add_argument("--aggregator-class", default="mean")
     ap.add_argument("--prep-class", default="identity")
@@ -102,20 +113,23 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, given in (("--coordinator", args.coordinator is not None),
-                        ("--num-processes", args.num_processes is not None),
-                        ("--process-id", args.process_id is not None)):
-        if given:
-            print(f"error: {flag} is not ported yet (ROADMAP Queue 1 item 14)", file=sys.stderr)
+    hosts = None
+    if (args.num_processes or 1) > 1:
+        if args.coordinator is None or args.process_id is None or \
+                not 0 <= args.process_id < args.num_processes:
+            print("error: --num-processes > 1 needs --coordinator host:port and a "
+                  "--process-id in [0, --num-processes)", file=sys.stderr)
             return 2
+        hosts = (args.coordinator, args.num_processes, args.process_id)
     from tpu_sage_torch.cli import cuda_missing
 
     if cuda_missing(args.device):
         return 2
-    if args.partitioned:
+    if args.partitioned or hosts:
         from tpu_sage_torch.cli import run_ranks
 
-        return run_ranks(_rank_main, args.device, (list(sys.argv[1:] if argv is None else argv),))
+        return run_ranks(_rank_main, args.device, (list(sys.argv[1:] if argv is None else argv),),
+                         hosts=hosts)
     return _export(args)
 
 
@@ -193,14 +207,15 @@ def _export(args) -> int:
         if args.out_dtype != "float32":
             out = out.to(getattr(torch, args.out_dtype))
         out = all_gather_rows(out)[:problem.n_nodes]
-        process = rank()
     else:
         graph = problem.device_graph(train=False, device=args.device)  # f32 features
         state = load_checkpoint(args.checkpoint, trainer.init_state(graph))
         out = embed_all_nodes(model, graph, chunk=args.chunk, with_head=args.logits)
         if args.out_dtype != "float32":
             out = out.to(getattr(torch, args.out_dtype))  # on the device, before the copy
-        process = 0
+    from tpu_sage_torch.dist.mesh import rank
+
+    process = rank()
     if process != 0:
         return 0
     arr = out.cpu().numpy()

@@ -99,8 +99,7 @@ class MeanAggregator(_TwoBranch):
         super().__init__(in_dim, output_dim, in_dim, activation, combine, dtype)
 
     def forward(self, x_self: torch.Tensor, x_neigh: torch.Tensor) -> torch.Tensor:
-        dt = self.fc_neigh.compute_dtype(x_neigh)
-        h_neigh = mean_project(x_neigh.contiguous(), self.fc_neigh.kernel.to(dt))
+        h_neigh = self.fc_neigh.columns(lambda x, w: mean_project(x.contiguous(), w), x_neigh)
         return self._finish(self.fc_self(x_self), h_neigh)
 
     def neigh_summary(self, x_self: torch.Tensor, x_neigh: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,12 @@ the same parameters on every device: ``lecun_normal_`` (flax's Dense
 default), ``orthogonal_`` (the LSTM's recurrent kernel) and the embedding
 table's normal of std ``1/sqrt(features)`` (flax's ``default_embed_init``).
 Biases start at zero.
+
+Under tensor parallelism (``dist/data_parallel.py``) a ``Dense`` holds only
+its rank's columns of the kernel and a ``tp`` object that makes the product
+column-parallel: the input enters through ``tp.enter`` (its gradient
+all-reduced over the model group) and the output columns leave through
+``tp.gather`` (all-gathered; the gradient sliced back).
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ class Dense(torch.nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dtype = dtype
+        self.tp = None  # the column-parallel hooks when the kernel is split
         self.kernel = torch.nn.Parameter(torch.empty(in_features, out_features))
         self.bias = torch.nn.Parameter(torch.zeros(out_features)) if use_bias else None
 
@@ -66,9 +73,18 @@ class Dense(torch.nn.Module):
     def compute_dtype(self, x: torch.Tensor) -> torch.dtype:
         return self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
 
+    def columns(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """``fn(x, kernel)`` with the kernel in the compute dtype: all the
+        output columns, gathered from the model group's under tensor
+        parallelism."""
+        w = self.kernel.to(self.compute_dtype(x))
+        if self.tp is None:
+            return fn(x, w)
+        return self.tp.gather(fn(self.tp.enter(x), w))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype(x)
-        y = x.to(dt) @ self.kernel.to(dt)
+        y = self.columns(lambda a, w: a.to(dt) @ w, x)
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
