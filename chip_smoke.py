@@ -141,7 +141,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    single-device export and ``--coordinator ... --num-processes 1`` bitwise
    it; (g) ``python3 -m tpu_sage_torch.bench.scaling`` up to the visible
    cards;
-12. prints each phase's wall time and the kernels line (the off-path cases
+12. the auxiliary modules: (a) ``kernels.probe()`` (each kernel once in a
+   subprocess against its plain version) returns True; (b) ``bench_store()``'s
+   adjacency as an edge list (29.8 M edges, so the port's native C++ code
+   runs) through ``data/convert.py``'s ``from_edgelist`` and
+   ``save_problem_h5``, read back by ``NodeProblem.from_h5`` bitwise, then
+   phase 5's configuration for TRAIN_STEPS steps on it with phase 5's
+   launches per step, the loss finite and falling; (c)
+   ``bench/profile.py::profile_steps`` at phase 5's configuration with a
+   ``torch.profiler`` trace, its launches exact and its trace naming the
+   main path's device kernels, beside phase 5's ms/step; (d) the
+   plain-PyTorch step of ``bench/torch_baseline.py`` on the card, beside
+   phase 5's edges/s; (e) ``bench/capacity.py`` in fresh processes: the
+   measured slack and transient constants, the 0.9 probes (dense bf16 and
+   int8 training, the bf16 exact pass) within their modeled bytes, with
+   the kernels bitwise their plain versions on the last rows of tables
+   above 2^31 elements, the 1.15 probe ending in the advice with exit code
+   1, and the envelope;
+13. prints each phase's wall time and the kernels line (the off-path cases
    among each kernel's cases, launches by path), then ``{"ok": true,
    "device": ...}`` last.
 """
@@ -2949,6 +2966,195 @@ def phase_multi_gpu(torch, np, store, graph, smi, peaks):
     return results, by_path
 
 
+# -- phase 12: the auxiliary modules -------------------------------------------------
+
+# the device kernels of the main path's four wrappers, as the profiler's trace
+# names them (the __global__ functions of kernels/csrc)
+MAIN_PATH_DEVICE_KERNELS = {"sample_hop": "sample_hop_kernel", "gather_rows": "gather_rows_",
+                            "gather_fanout_mean": "gather_fanout_mean_kernel",
+                            "mean_project": "mean_project_bf16_kernel"}
+# bench/capacity.py --probe runs at 0.9 of the modeled max_nodes (each in a
+# fresh process), and once past it at 1.15, where it must end in the advice
+CAPACITY_PROBES = (("dense bf16 training", ["--frac", "0.9"]),
+                   ("int8 training", ["--frac", "0.9", "--int8"]),
+                   ("bf16 exact pass", ["--frac", "0.9", "--mode", "infer"]))
+CAPACITY_TIMEOUT = 240
+
+
+def convert_and_train(torch, np, store, tmp):
+    """Phase 12 (b): ``bench_store()``'s adjacency as an edge list through the
+    port's converter (more than 100,000 edges: its native C++ code), written
+    to ``problem.h5`` and read back bitwise, then phase 5's configuration
+    trained on it with phase 5's launches per step."""
+    import os
+
+    from tpu_sage_torch import native
+    from tpu_sage_torch.data.convert import from_edgelist, save_problem_h5
+    from tpu_sage_torch.data.problem import NodeProblem
+
+    n, deg = store.adj.shape
+    edges = np.stack([np.repeat(np.arange(n, dtype=np.int64), deg),
+                      store.adj.reshape(-1).astype(np.int64)], axis=1)
+    if not (native.available() and len(edges) > 100_000):
+        raise AssertionError("the converter's native library does not build or would not run")
+    t0 = time.perf_counter()
+    conv = from_edgelist(edges, store.feats, store.targets, store.folds, max_degree=deg, seed=0)
+    t1 = time.perf_counter()
+    path = os.path.join(tmp, "problem.h5")
+    save_problem_h5(conv, path)
+    t2 = time.perf_counter()
+    problem = NodeProblem.from_h5(path)
+    t3 = time.perf_counter()
+    back = problem.store
+    for k in ("adj", "degrees", "train_adj", "train_degrees", "feats", "targets"):
+        a, b = getattr(back, k), getattr(conv, k)
+        if not (a.dtype == b.dtype and np.array_equal(a, b)):
+            raise AssertionError(f"problem.h5 {k} is not the converted store's")
+    for k in conv.folds:
+        if not np.array_equal(back.folds[k], conv.folds[k]):
+            raise AssertionError(f"problem.h5 fold {k} is not the converted store's")
+    rec = {"edges_in": len(edges), "nodes": n, "feat_dim": conv.feat_dim,
+           "from_edgelist_s": t1 - t0, "save_problem_h5_s": t2 - t1, "from_h5_s": t3 - t2,
+           "file_bytes": os.path.getsize(path), "mean_degree": float(conv.degrees.mean()),
+           "mean_train_degree": float(conv.train_degrees.mean()), "native_library": True}
+    log(json.dumps({"convert": rec}))
+    del edges, conv
+    run, counts = train_run(torch, np, "converted problem.h5", problem,
+                            aggregator_config("mean"), TRAIN_STEPS, WARMUP_STEPS)
+    if run["launches_per_step"] != PER_STEP:
+        raise AssertionError(f"converted run: {run['launches_per_step']} launches per step, "
+                             f"phase 5's {PER_STEP}")
+    return counts
+
+
+def profile_with_trace(torch, tmp, main_ms):
+    """Phase 12 (c): ``bench/profile.py::profile_steps`` at phase 5's
+    configuration with a trace, its launches exact, its Chrome trace naming
+    the main path's device kernels."""
+    import os
+    import re
+
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.bench.profile import profile_steps
+
+    trace_dir = os.path.join(tmp, "trace")
+    kernels.reset_launch_counts()
+    out = profile_steps(trace_dir, steps=TRAIN_STEPS, batch_size=BATCH,
+                        compute_dtype="bfloat16", trace=True, fanouts=FANOUTS)
+    counts = kernels.launch_counts()
+    want = {k: v * (TRAIN_STEPS + 1) for k, v in PER_STEP.items()}  # one untraced step first
+    if counts != want:
+        raise AssertionError(f"profile_steps launched {counts}, expected {want}")
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    device_names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in device_names if re.search(r"(?<![\w])" + prefix, n))
+             for k, prefix in MAIN_PATH_DEVICE_KERNELS.items()}
+    missing = [k for k, names in named.items() if not names]
+    if missing:
+        raise AssertionError(f"the trace names none of {missing}'s device kernels; it has "
+                             f"{sorted(n[:80] for n in device_names)}")
+    log(json.dumps({"profile_steps": {**out, "phase5_ms_per_step": main_ms,
+                                      "trace_events": len(events),
+                                      "device_kernels_named": {k: [n[:80] for n in v[:2]]
+                                                               for k, v in named.items()}}}))
+    return counts
+
+
+def plain_baseline(torch, main_ms):
+    """Phase 12 (d): the plain-PyTorch GraphSAGE step on the card
+    (``bench/torch_baseline.py``), which launches no kernel of the port."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.bench import torch_baseline
+
+    kernels.reset_launch_counts()
+    out = torch_baseline.run(device="cuda")
+    if any(kernels.launch_counts().values()) or not out["loss_finite"]:
+        raise AssertionError(f"the plain baseline launched {kernels.launch_counts()} or its "
+                             f"loss is not finite")
+    edges = BATCH * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
+    log(json.dumps({"torch_baseline": {**out, "phase5_ms_per_step": main_ms,
+                                       "phase5_edges_per_sec": edges / (main_ms / 1e3)}}))
+
+
+def capacity_runs(torch):
+    """Phase 12 (e): ``bench/capacity.py`` in fresh processes: the measured
+    slack and transient constants; the 0.9 probes, each training or serving
+    within its modeled bytes with its far-row checks bitwise; the 1.15 probe
+    ending in the advice and exit code 1 with no traceback; the envelope.
+    The probes size themselves to the card's memory less what this process
+    holds (``--hbm-gb``)."""
+    import gc
+    import os
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    held = total - free
+    hbm_gb = str((total - held) / 1024**3)
+    log(f"  this process holds {held} B of the card's {total} B; the probes size for the rest")
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def run(*args):
+        return subprocess.run([sys.executable, "-m", "tpu_sage_torch.bench.capacity", *args],
+                              cwd=root, capture_output=True, text=True, timeout=CAPACITY_TIMEOUT)
+
+    r = run("--measure")
+    if r.returncode != 0:
+        raise AssertionError(f"capacity --measure failed:\n{r.stderr[-3000:]}")
+    measured = json.loads(r.stdout.strip().splitlines()[-1])["measured"]
+    # mem_get_info is the card's: the fresh process's own runtime bytes are
+    # what it sees outside its allocator less what this process holds
+    own = measured["runtime_bytes"] - held
+    log(json.dumps({"capacity_measured": {**measured, "this_process_holds": held,
+                                          "fresh_process_runtime_bytes": own,
+                                          "fresh_process_slack_bytes":
+                                              own + measured["allocator_bytes"]}}))
+    for label, args in CAPACITY_PROBES:
+        r = run("--probe", "--hbm-gb", hbm_gb, *args)
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or not lines:
+            raise AssertionError(f"capacity probe {label} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        rec = json.loads(lines[-1])["probe_result"]
+        if not (rec["within_model"] and rec["finite"] and all(rec["far_rows_bitwise"].values())):
+            raise AssertionError(f"capacity probe {label}: {rec}")
+        log(f"  {label}: {lines[0]}")
+        log(f"  {label}: peak allocated {rec['peak_allocated']} B against {rec['modeled_bytes']}"
+            f" B modeled; {lines[-1]}")
+    r = run("--probe", "--hbm-gb", hbm_gb, "--frac", "1.15")
+    if r.returncode != 1 or not r.stderr.startswith("error: graph does not fit device memory") \
+            or "Traceback" in r.stderr:
+        raise AssertionError(f"the 1.15 probe exited {r.returncode}, not 1 with the advice:\n"
+                             f"{r.stderr[-3000:]}")
+    log(f"  past the limit (1.15): exit 1, {r.stderr.strip()}")
+    r = run()
+    if r.returncode != 0:
+        raise AssertionError(f"the capacity table failed:\n{r.stderr[-3000:]}")
+    log(json.dumps({"capacity_table": [json.loads(line) for line in r.stdout.splitlines()]}))
+
+
+def phase_auxiliary(torch, np, store, main_ms, smi):
+    """Phase 12: the auxiliary modules on the card. (a) ``kernels.probe()``;
+    (b) conversion and training; (c) the profiler; (d) the plain baseline;
+    (e) the capacity model. Returns the launch counts by path."""
+    import tempfile
+
+    from tpu_sage_torch.kernels import probe
+
+    t0 = time.perf_counter()
+    if not probe():
+        raise AssertionError("kernels.probe() returned False")
+    log(f"  kernels.probe(): True in {time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path = {"converted_train": convert_and_train(torch, np, store, tmp),
+                   "profile_steps": profile_with_trace(torch, tmp, main_ms)}
+    plain_baseline(torch, main_ms)
+    capacity_runs(torch)
+    log(smi)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -3046,6 +3252,9 @@ def main() -> int:
     mg_results, mg_paths = phase_multi_gpu(torch, np, store, graph, smi, peaks)
     results += mg_results
     by_path.update(mg_paths)
+    phase("phase 12: auxiliary modules (probe, converter, profiler, baseline, capacity)")
+    del graph, levels, problem, sbm
+    by_path.update(phase_auxiliary(torch, np, store, main_ms, smi))
     phase(None)
 
     kernels_line = []

@@ -171,7 +171,10 @@ def test_every_mode_and_storage_trains(port, label):
     if label == "measured":
         assert set(head["halo_measured_ms"]) == {"exact", "ring", "pipelined"}
         modes = head["halo_measured_ms"]
-        want = "exact" if "halo_measured_fallback" in head else min(modes, key=modes.get)
+        # measure_halo_mode abstains to exact only when exact is within noise
+        # of the best; a fallback note that keeps the measured best keeps it
+        abstained = "using the auto default" in head.get("halo_measured_fallback", "")
+        want = "exact" if abstained else min(modes, key=modes.get)
         assert head["halo"] == want
         assert {ranks[r]["mode/measured/halo"] for r in range(WORLD)} == {want}
     if label == "hier2d":  # fit builds the group's own (host, chip) layout

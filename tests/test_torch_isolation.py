@@ -2,6 +2,7 @@
 nor anything of the JAX package, nor scikit-learn (the card's machine has
 none)."""
 
+import ast
 import glob
 import os
 import re
@@ -21,8 +22,9 @@ FORBIDDEN = re.compile(
 
 def test_importing_the_port_loads_no_jax_module():
     """Every module of the port (``train/unsupervised.py``, whose probe is
-    written without scikit-learn, ``nn/fused.py`` and the multi-device
-    ``dist/`` modules included) imports neither JAX nor the JAX package nor
+    written without scikit-learn, ``nn/fused.py``, the multi-device
+    ``dist/`` modules and the auxiliary ones, the native library and the
+    converter included) imports neither JAX nor the JAX package nor
     scikit-learn."""
     modules = sorted(
         "tpu_sage_torch." + os.path.relpath(p, os.path.join(REPO, "tpu_sage_torch"))[:-3]
@@ -30,6 +32,9 @@ def test_importing_the_port_loads_no_jax_module():
     assert "tpu_sage_torch.train.unsupervised" in modules and "tpu_sage_torch.nn.fused" in modules
     assert {f"tpu_sage_torch.dist.{m}" for m in ("mesh", "partition", "halo", "train",
                                                    "data_parallel", "debug")} <= set(modules)
+    assert {f"tpu_sage_torch.{m}" for m in ("native", "data.convert", "overrides", "utils",
+                                            "bench.capacity", "bench.profile",
+                                            "bench.torch_baseline")} <= set(modules)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -52,6 +57,37 @@ def test_source_has_no_jax_or_reference_import(path):
     with open(path) as f:
         hits = FORBIDDEN.findall(f.read())
     assert not hits, f"{os.path.relpath(path, REPO)} imports {hits}"
+
+
+def _code_strings(source):
+    """The string constants of ``source`` that are not docstrings."""
+    tree = ast.parse(source)
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [c.value for c in ast.walk(tree)
+            if isinstance(c, ast.Constant) and isinstance(c.value, str) and id(c) not in docs]
+
+
+JAX_PACKAGE_PATH = re.compile(r"tpu_sage(?!_torch)(/|$)")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_module_names_a_file_of_the_jax_package(path):
+    """No module reaches the JAX package by path either: the C++ graph code and
+    the fold codes are the port's own copies (``native/``, ``data/``)."""
+    with open(path) as f:
+        hits = [s for s in _code_strings(f.read()) if JAX_PACKAGE_PATH.search(s)]
+    assert not hits, f"{os.path.relpath(path, REPO)} names {hits}"
+
+
+def test_the_path_pattern_catches_what_it_should():
+    assert _code_strings('"""doc tpu_sage/x.py"""\nx = "tpu_sage/native"\n') == ["tpu_sage/native"]
+    for s in ("tpu_sage/native/graph_builder.cpp", "tpu_sage", "../tpu_sage/"):
+        assert JAX_PACKAGE_PATH.search(s), s
+    for s in ("tpu_sage_torch/native", "build/tpu_sage_torch", "tpu_sage_torch"):
+        assert not JAX_PACKAGE_PATH.search(s), s
 
 
 def test_forbidden_pattern_catches_what_it_should():

@@ -37,9 +37,12 @@ process), and on ``--device cpu`` runs one rank. ``--partitioned
 exchanges over the group's ``(host, chip)`` layout, one row per host.
 ``--reorder`` relabels the nodes before partitioning, for as many shards as
 the run has ranks. ``--gather-form``, ``--gather-form-deep`` and
-``--gather-chunks`` go into the config and change nothing on the port. The
-reference's capacity advice on running out of device memory is not ported
-(ROADMAP Queue 1 item 15): the error propagates.
+``--gather-chunks`` go into the config and change no value on the port.
+
+A run that runs out of card memory (``torch.cuda.OutOfMemoryError``, and no
+other error) ends with exit code 1 and the capacity model's advice on stderr
+(``bench/capacity.py::oom_advice``): the modeled bytes of the run's own
+storage and the flags that shrink them.
 """
 
 from __future__ import annotations
@@ -250,12 +253,28 @@ def run_ranks(fn, device: str, args: tuple, hosts=None) -> int:
         if n == 1:
             return mesh.run_in_process(fn, device, args, rank=pid, world_size=n_proc,
                                        init_method=method)
-        mesh.spawn(fn, n_proc * n, device, args, init_method=method, n_local=n,
-                   rank_base=pid * n)
-        return 0
+        return _spawned(fn, n_proc * n, device, args, init_method=method, n_local=n,
+                        rank_base=pid * n)
     if n == 1:
         return mesh.run_in_process(fn, device, args)
-    mesh.spawn(fn, n, device, args)
+    return _spawned(fn, n, device, args)
+
+
+def _spawned(*args, **kw) -> int:
+    """``mesh.spawn(*args, **kw)``'s exit code: 0, or the code a rank's
+    ``fn`` returned (``mesh.spawn`` fails the group on it and terminates the
+    other ranks, which may wait in a collective). A rank that raises, or
+    dies of a signal, still raises here."""
+    from torch.multiprocessing import ProcessExitedException
+
+    from tpu_sage_torch.dist import mesh
+
+    try:
+        mesh.spawn(*args, **kw)
+    except ProcessExitedException as e:
+        if e.exit_code is None or e.exit_code <= 0:
+            raise
+        return e.exit_code
     return 0
 
 
@@ -376,14 +395,42 @@ def _run(args, raw_argv) -> int:
                    for k, v in config.__dict__.items()},
     })
     if not args.log_path or rank() != 0:
-        return _run_fit(args, problem, config, None)
+        return _fit_or_advise(args, problem, config, None)
     with open(args.log_path, "a") as logf:
         def log(rec):
             print(json.dumps(rec), flush=True)
             logf.write(json.dumps(rec) + "\n")
             logf.flush()
 
+        return _fit_or_advise(args, problem, config, log)
+
+
+def _fit_or_advise(args, problem, config, log) -> int:
+    """``_run_fit``; on ``torch.cuda.OutOfMemoryError``, and only that, the
+    capacity advice on stderr and exit code 1. The model is the run's own
+    storage: int8 over the compute dtype; one resident graph under
+    ``--no-eval`` without ``--val-interval`` (the full-edge graph is uploaded
+    on first validation), else two; under ``--partitioned`` the nodes per
+    rank. (The JAX package also classifies an opaque TPU compile-helper
+    crash as capacity; CUDA reports running out of memory as itself, so
+    nothing else is caught here.)"""
+    import torch
+
+    from tpu_sage_torch.dist.mesh import world
+
+    try:
         return _run_fit(args, problem, config, log)
+    except torch.cuda.OutOfMemoryError:
+        from tpu_sage_torch.bench.capacity import oom_advice
+
+        st = problem.store
+        feature = "int8" if config.feature_int8 else config.compute_dtype
+        n_graphs = 1 if (args.no_eval and not args.val_interval) else 2
+        n_nodes = -(-st.n_nodes // world()) if args.partitioned else st.n_nodes
+        print("error: " + oom_advice(n_nodes, st.feat_dim, st.adj.shape[1],
+                                     csr=args.csr_adjacency, feature=feature,
+                                     n_graphs=n_graphs), file=sys.stderr)
+        return 1
 
 
 def _run_fit(args, problem, config, log):

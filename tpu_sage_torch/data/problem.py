@@ -55,25 +55,23 @@ class NodeProblem:
 
     @classmethod
     def from_h5(cls, problem_path: str) -> "NodeProblem":
-        import h5py  # only this constructor needs it
+        """Load a ``problem.h5`` (read without h5py, ``data/hdf5.py``)."""
+        from tpu_sage_torch.data import hdf5
 
         if not os.path.exists(problem_path):
             raise SystemExit(f"error: problem file not found: {problem_path!r}")
-        with h5py.File(problem_path, "r") as f:
-            adj = f["adj"][:].astype(np.int32)
-            train_adj = f["train_adj"][:].astype(np.int32) if "train_adj" in f else adj
-            degrees = (f["degrees"][:].astype(np.int32) if "degrees" in f
-                       else infer_degrees(adj))
-            train_degrees = (f["train_degrees"][:].astype(np.int32)
-                             if "train_degrees" in f else infer_degrees(train_adj))
-            feats = f["feats"][:].astype(np.float32)
-            targets = f["targets"][:]
-            fold_codes = f["folds"][:]
-            walks = f["walks"][:] if "walks" in f else None
-            task = f.attrs.get("task", "classification")
-            if isinstance(task, bytes):
-                task = task.decode()
-            n_classes = int(f.attrs.get("n_classes", 0))
+        f, attrs = hdf5.read(problem_path)
+        adj = f["adj"].astype(np.int32, copy=False)
+        train_adj = f["train_adj"].astype(np.int32, copy=False) if "train_adj" in f else adj
+        degrees = f["degrees"].astype(np.int32, copy=False) if "degrees" in f else infer_degrees(adj)
+        train_degrees = (f["train_degrees"].astype(np.int32, copy=False) if "train_degrees" in f
+                         else infer_degrees(train_adj))
+        feats = f["feats"].astype(np.float32, copy=False)
+        targets = f["targets"]
+        fold_codes = f["folds"]
+        walks = f.get("walks")
+        task = attrs.get("task", "classification")
+        n_classes = int(attrs.get("n_classes", 0))
         folds = {
             name: np.nonzero(fold_codes == code)[0].astype(np.int64)
             for name, code in FOLD_CODES.items()

@@ -20,7 +20,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from tpu_sage_torch.data.problem import NodeProblem
+from tpu_sage_torch.data.problem import FOLD_CODES, NodeProblem
 from tpu_sage_torch.graph.graph_data import GraphStore, build_padded_adjacency
 
 _DEFAULT_CACHE = os.path.join(
@@ -40,6 +40,15 @@ def _split_folds(
         "test": np.sort(perm[n_val : n_val + n_test]).astype(np.int64),
         "train": np.sort(perm[n_val + n_test :]).astype(np.int64),
     }
+
+
+def fold_codes_from_folds(n: int, folds: Dict[str, np.ndarray]) -> np.ndarray:
+    """Per-node int8 fold codes (``FOLD_CODES``; 0 for nodes in no fold), the
+    ``folds`` dataset of ``problem.h5``."""
+    codes = np.zeros(n, dtype=np.int8)
+    for name, code in FOLD_CODES.items():
+        codes[folds[name]] = code
+    return codes
 
 
 def sbm_store(

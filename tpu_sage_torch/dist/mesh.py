@@ -163,9 +163,11 @@ def _rank_main(local: int, fn: Callable, world_size: int, device: str, init_meth
                        init_method=init_method, local_rank=local,
                        local_world_size=local_world_size)
     try:
-        fn(*args)
+        code = fn(*args)
     finally:
         destroy_process_group()
+    if code:  # a rank's exit code (the CLI's 1 on running out of memory) fails the group
+        raise SystemExit(code)
 
 
 def spawn(fn: Callable, world_size: int, device: str = "cuda", args: tuple = (),
@@ -176,7 +178,9 @@ def spawn(fn: Callable, world_size: int, device: str = "cuda", args: tuple = (),
     be importable by name (spawned processes import it); it reads its rank
     from ``rank()``. The group's ``file://`` store lives in a fresh directory
     under ``store_dir`` (default: the system's temporary directory). Raises
-    if a rank raises.
+    if a rank raises, and ``torch.multiprocessing.ProcessExitedException``
+    (its ``exit_code``) if ``fn`` returns a nonzero exit code on a rank; the
+    other ranks are then terminated.
 
     Multi-host: with ``init_method`` (``tcp://host:port``) this process
     spawns ``n_local`` ranks, ``rank_base`` to ``rank_base + n_local − 1``,

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpu_sage_torch import overrides
 from tpu_sage_torch.dist.halo import (CSRPairRows, all_gather_rows, dist_gather,
                                       dist_gather_2d, dist_gather_bucketed,
                                       dist_gather_fanout_mean, dist_gather_ring,
@@ -392,7 +393,7 @@ class PartitionedTrainer:
         self.gather_last = (
             make_gather_last(self.halo_mode, self.n_shards, cf, layout)
             if model.aggregator_class in ("mean", "gcn") and model.prep_class == "identity"
-            and config.fuse_last != "off" else None)
+            and overrides.fuse_last(config.fuse_last) != "off" else None)
         self.gather_levels = make_gather_levels(self.halo_mode, self.n_shards)
         self.halo_timings = None
         self.halo_fallback = None

@@ -139,6 +139,10 @@ class GraphStore:
     def feat_dim(self) -> int:
         return self.feats.shape[1]
 
+    @property
+    def max_degree(self) -> int:
+        return self.adj.shape[1]
+
     def to_device(
         self, train: bool, dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cuda", quantize: bool = False,

@@ -29,9 +29,20 @@ or raises. The kernels build on first use (``_build``). ``gather_blockspec``
 is the measurement foil of ``gather``: nothing on the main path launches it.
 The main path's sampler hops launch ``sample_hop`` (select fused with its
 gathers); the packed sampler launches ``select``.
+
+``probe()`` is the counterpart of the JAX package's
+``tpu_sage/kernels/__init__.py::probe``: it builds every source, then in a
+subprocess under a timeout launches each of the nine kernels once against
+its plain version. It is a health check and switches nothing: no path reads it.
+The JAX package's ``PALLAS_ENABLED`` flag has no counterpart, because the
+port's kernels are always on for CUDA tensors.
 """
 
 from __future__ import annotations
+
+import os
+import subprocess
+import sys
 
 from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
                                     sample_hop, select)
@@ -60,3 +71,33 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name, mod in KERNEL_MODULES.items():
         setattr(mod, COUNTERS[name], 0)
+
+
+def probe(timeout: float = 90.0) -> bool:
+    """Do the kernels build, launch and match their plain versions here?
+    Builds every source in this process first (a cold ``nvcc`` build takes
+    minutes and is not what the timeout guards), then runs
+    ``kernels/_probe.py`` in a subprocess killed after ``timeout`` seconds,
+    so a hung launch cannot take the caller down. True only if each of the
+    nine kernels launched once and matched; False with no card, no ``nvcc``,
+    a failed build, a hang or a mismatch. Never raises."""
+    import torch
+
+    from tpu_sage_torch.kernels import _build
+
+    try:
+        if not torch.cuda.is_available():
+            return False
+        _build.build()
+    except Exception:
+        return False
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    try:
+        r = subprocess.run([sys.executable, "-m", "tpu_sage_torch.kernels._probe",
+                            _build.BUILD_DIR], cwd=root, env=env, timeout=timeout,
+                           capture_output=True)
+    except (OSError, subprocess.SubprocessError):
+        return False
+    return r.returncode == 0

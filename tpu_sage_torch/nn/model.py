@@ -26,6 +26,14 @@ level's rows then arrive dequantized in the compute dtype through
 ``row_gather``, and the fused fanout mean is the int8 kernel's
 (``int8_summean``: the int32 sum times ``scale / F``, else the mean of the
 dequantized rows).
+
+``gather_form`` picks the levels' gather form as the JAX package's does
+(``"plain"`` by default; ``"masked"`` and ``"masked_chunked"`` zero-fill
+out-of-range ids; ``gather_form_deep`` the deepest level's when it is
+gathered whole), and ``TPU_SAGE_GATHER_FORM`` and ``TPU_SAGE_FUSE_LAST``
+override the config (``overrides.py``). The samplers give in-range ids only,
+so the forms give the same values; the fused fanout mean clamps, as the JAX
+package's XLA form does in ``plain``.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from tpu_sage_torch import overrides
 from tpu_sage_torch.nn.aggregators import aggregator_lookup
 from tpu_sage_torch.nn.dense import Dense
 from tpu_sage_torch.nn.fused import project_gather
@@ -115,6 +124,8 @@ class GSSupervised(torch.nn.Module):
         fuse_last: str = "auto",
         int8_summean: bool = True,
         fuse_first_layer: bool = False,
+        gather_form: Optional[str] = None,
+        gather_form_deep: Optional[str] = None,
     ):
         super().__init__()
         if aggregator_class not in aggregator_lookup:
@@ -130,6 +141,8 @@ class GSSupervised(torch.nn.Module):
         self.fuse_last = fuse_last
         self.int8_summean = int8_summean
         self.fuse_first_layer = fuse_first_layer
+        self.gather_form = gather_form
+        self.gather_form_deep = gather_form_deep
         self.prep = prep_lookup[prep_class](feat_dim, n_nodes=n_nodes,
                                             embedding_dim=embedding_dim)
         agg_cls = aggregator_lookup[aggregator_class]
@@ -153,11 +166,11 @@ class GSSupervised(torch.nn.Module):
     def fuses_last(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> bool:
         """The JAX package's ``fuse_last`` policy: summarise the deepest level
         right after its gather when the prep is the identity, the tree has two
-        levels or more, ``fuse_last`` is not ``"off"``, and the aggregator is
-        not ``lstm`` unless ``fuse_last`` is ``"all"``."""
+        levels or more, ``fuse_last`` (or ``TPU_SAGE_FUSE_LAST``) is not
+        ``"off"``, and the aggregator is not ``lstm`` unless it is ``"all"``."""
+        fl = overrides.fuse_last(self.fuse_last)
         return (feats is not None and self.prep_class == "identity" and len(levels) >= 2
-                and self.fuse_last != "off"
-                and (self.aggregator_class != "lstm" or self.fuse_last == "all"))
+                and fl != "off" and (self.aggregator_class != "lstm" or fl == "all"))
 
     def encode(self, levels: List[torch.Tensor], feats: Optional[torch.Tensor]) -> torch.Tensor:
         """Collapse the neighborhood tree into per-root embeddings ``(B, D)``;
@@ -168,9 +181,11 @@ class GSSupervised(torch.nn.Module):
                 and self.prep_class == "identity" and feats is not None
                 and len(self.layer_specs) >= 1):
             return self._encode_fused(levels, feats)
+        form = overrides.gather_form(self.gather_form) or "plain"
+        base_form = "masked" if form == "masked_chunked" else form
         fuse_last = self.fuses_last(levels, feats)
         gathered = [
-            None if feats is None else row_gather(feats, ids)
+            None if feats is None else row_gather(feats, ids, form=base_form)
             for ids in (levels[:-1] if fuse_last else levels)
         ]
         if not fuse_last:
@@ -183,17 +198,18 @@ class GSSupervised(torch.nn.Module):
             summary = row_gather_fanout_mean(feats, levels[-1], fanout,
                                              int8_summean=self.int8_summean).to(feats.dtype)
         else:
-            summary = self._deepest_summary(levels, gathered[-1], feats, fanout)
+            summary = self._deepest_summary(levels, gathered[-1], feats, fanout,
+                                            self.gather_form_deep or base_form)
         gathered.append(summary)
         return self.encode_gathered(levels, gathered, last_reduced_fanout=fanout)
 
     def _deepest_summary(self, levels: List[torch.Tensor], x_self_rows: torch.Tensor,
-                         feats: torch.Tensor, fanout: int) -> torch.Tensor:
+                         feats: torch.Tensor, fanout: int, form: str) -> torch.Tensor:
         """The deepest level gathered in one launch and summarised per root by
         the first aggregator (pooled MLP, attention over the root's own group,
         LSTM over it); ``x_self_rows`` are the level above's rows (the
         attention's queries)."""
-        rows = row_gather(feats, levels[-1])
+        rows = row_gather(feats, levels[-1], form=form)
         n_roots = levels[-2].shape[0]
         return self.agg_layers[0].neigh_summary(x_self_rows,
                                                 rows.reshape(n_roots, fanout, -1))

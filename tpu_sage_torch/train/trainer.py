@@ -41,8 +41,9 @@ Graph = Union[DeviceGraph, CSRDeviceGraph]  # what the step samples from
 class TrainConfig:
     """Flat, json-loadable run config with the reference's field names, so the
     presets in ``configs/`` load unchanged. The gather-lowering knobs
-    (``gather_form``, ``gather_form_deep``, ``gather_chunks``) change no value
-    and are ignored; the partitioned path's (``halo``, ``halo_measure_steps``,
+    change no value: ``gather_form`` and ``gather_form_deep`` pick the
+    gathers' out-of-range form (``nn/model.py``), ``gather_chunks`` is
+    ignored; the partitioned path's (``halo``, ``halo_measure_steps``,
     ``halo_capacity_factor``, ``csr_owner_select``) are read by
     ``dist/train.py`` and ignored on one device; ``halo_chunks`` changes no
     value there either (the port does not split the exchange)."""
@@ -169,6 +170,8 @@ def build_model(config: TrainConfig, n_nodes: int, n_classes: int,
         fuse_last=config.fuse_last,
         int8_summean=config.int8_summean,
         fuse_first_layer=config.fuse_first_layer,
+        gather_form=config.gather_form,
+        gather_form_deep=config.gather_form_deep,
     )
 
 
