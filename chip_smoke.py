@@ -20,8 +20,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel, plain version and one PyTorch library call with CUDA events,
    L2-cold (``tpu_sage_torch.bench.timing``), and ``gather_rows`` at exact
    inference's three shapes (one 4,096-node chunk's 524,288 neighbor ids
-   from f32 602-wide, f32 256-wide and bf16 602-wide tables); then edge cases (every
-   realignment shift of ``gather_rows``, out-of-range ids, degree 0) and the
+   from f32 602-wide, f32 256-wide and bf16 602-wide tables), and both
+   redesigned kernels where they once lost to their library call
+   (``mean_project`` at 6,144 roots, on the preps' f32 rows at 512 and
+   12,800 roots, at O = 64 and with an f32 W; ``gather_rows`` on int8
+   602-byte rows, PPI-shaped 200-byte f32 rows and 1,024-byte f32 rows);
+   then edge cases (every realignment shift of ``gather_rows``, 2- and
+   4-byte, out-of-range ids, degree 0; the persistent ``mean_project``'s
+   ragged last tile, x 4 and 8 bytes off alignment and W ring) and the
    packed sampler (``sample_tree_packed``) at full width, bitwise against
    ``sample_tree`` with the same uniforms and with its own launch counts;
 4. reference: one full-width forward (232,965 × 602 Reddit-shaped store,
@@ -498,6 +504,7 @@ def phase_kernels(torch, np, graph, levels, peaks):
             x.numel() * 2 + w.numel() * 2 + b * DIMS[1] * 2,
             flops=2 * b * d * DIMS[1] + b * fo * d, tol=MEAN_PROJECT_TOL, weight=weight)
 
+    cases += redesign_cases(torch, graph, levels, peaks, gen)
     results = time_cases(torch, cases, bw)
 
     # edge cases the main path never produces: out-of-range ids and columns,
@@ -543,11 +550,126 @@ def phase_kernels(torch, np, graph, levels, peaks):
         for k, (a, b) in zip(("out", "dx", "dW"), zip(*grads)):
             torch.testing.assert_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
                                        msg=lambda m, k=k: f"mean_project {dtype} {k}: {m}")
+    check_mean_project_tiles(torch, mean_project, feats, gen)
     torch.cuda.synchronize()
-    log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8), "
-        "sample_hop at degree 0 and u near 1, f32 fanout mean (bitwise), ragged mean_project "
-        "with a W ring, mean_project backward (bf16, f32): ok")
+    log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8; 2- and "
+        "4-byte; 8, 16 and 32 lanes a row; 16-byte words 2 a lane), sample_hop at degree 0 and "
+        "u near 1, f32 fanout mean (bitwise), ragged mean_project with a W ring, persistent "
+        "mean_project tiles (ragged, x 4 and 8 B off, W ring), mean_project backward (bf16, "
+        "f32): ok")
     return results
+
+
+def redesign_cases(torch, graph, levels, peaks, gen):
+    """Phase 3, the shapes where ``mean_project`` and ``gather_rows`` lost to
+    their library call before their redesign (weight 0: off the main path's
+    step), against their plain versions: ``mean_project`` at the NCE step's
+    layers (6,144 roots, row 5u), on the preps' f32 rows (512 x 25 and
+    12,800 x 10, 64 and 666 wide, row 5x), at a model axis of 2's O = 64
+    (row 5t) and with an f32 W (row 5f, whose yardstick is the f32 product
+    at "highest" precision); ``gather_rows`` on the int8 step's 602-byte rows
+    (q = 512, 12,800, row 2i), on PPI-shaped 200-byte f32 rows (q = 64,000)
+    and on exact inference's f32 rows 256 wide (q = 524,288, row 2x)."""
+    from tpu_sage_torch.kernels import gather, mean_project
+
+    bw, bf16_peak, f32_peak = peaks
+    feats, adj, deg = graph.feats, graph.adj, graph.degrees
+    n, dcol = feats.shape
+    l0, l1, l2 = levels
+    cases = []
+
+    def add_mp(label, x, w, peak=bf16_peak, tol=MEAN_PROJECT_TOL):
+        b, f, d = x.shape
+        o = w.shape[1]
+        cases.append(kernel_case(
+            "mean_project", f"{label} x {str(x.dtype)[6:]} {tuple(x.shape)}, W "
+            f"{str(w.dtype)[6:]} {tuple(w.shape)}",
+            lambda x=x, w=w: mean_project.mean_project(x, w),
+            lambda x=x, w=w: mean_project.mean_project_reference(x, w),
+            lambda x=x, w=w: x.mean(1).to(w.dtype) @ w,
+            x.numel() * x.element_size() + w.numel() * w.element_size()
+            + b * o * w.element_size(),
+            flops=2 * b * d * o + b * f * d, peak=peak, tol=tol, weight=0))
+
+    def weight(d, o, dtype=torch.bfloat16):
+        return (torch.randn((d, o), generator=gen, device="cuda") / d ** 0.5).to(dtype)
+
+    ids_u = torch.randint(0, n, (6144 * FANOUTS[0],), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    x0 = feats[l1.long()].view(BATCH, FANOUTS[0], dcol)
+    x1 = torch.relu(torch.randn((BATCH, FANOUTS[0], 2 * DIMS[0]), generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+    add_mp("NCE layer 0", feats[ids_u.long()].view(6144, FANOUTS[0], dcol), weight(dcol, 128))
+    add_mp("NCE layer 1", torch.relu(torch.randn((6144, FANOUTS[0], 256), generator=gen,
+                                                 device="cuda")).to(torch.bfloat16),
+           weight(256, 128))
+    prep_w = torch.randn((dcol, EMBEDDING_DIM), generator=gen, device="cuda") / dcol ** 0.5
+    for ids, f in ((l1, FANOUTS[0]), (l2, FANOUTS[1])):
+        rows = feats[ids.long()].float()
+        emb = torch.randn((ids.shape[0], EMBEDDING_DIM), generator=gen, device="cuda")
+        add_mp("linear prep", (rows @ prep_w).view(-1, f, EMBEDDING_DIM),
+               weight(EMBEDDING_DIM, DIMS[0]))
+        add_mp("node_embedding prep", torch.cat([rows, emb / EMBEDDING_DIM ** 0.5], 1).view(
+            -1, f, dcol + EMBEDDING_DIM), weight(dcol + EMBEDDING_DIM, DIMS[0]))
+        del rows, emb
+    for label, x in (("TP layer 0", x0), ("TP layer 1", x1)):
+        add_mp(label, x, weight(x.shape[2], DIMS[1] // 2))
+    for label, x in (("f32 W layer 0", x0.float()), ("f32 W layer 1", x1.float())):
+        add_mp(label, x, weight(x.shape[2], DIMS[1], torch.float32), peak=f32_peak,
+               tol=(1e-5, 1e-5))
+
+    def add_gather(label, table, ids, oob="clamp"):
+        q, row, ids64 = ids.shape[0], table.shape[1] * table.element_size(), ids.long()
+        nd = int(torch.unique(ids).numel())
+        cases.append(kernel_case(
+            "gather_rows", f"{label} {str(table.dtype)[6:]} {tuple(table.shape)} q={q}",
+            lambda t=table, i=ids: gather.gather_rows(t, i, oob),
+            lambda t=table, i=ids: gather.gather_rows_reference(t, i, oob),
+            lambda t=table, i=ids64: t[i], 4 * q + nd * row + q * row, weight=0))
+
+    q8 = torch.randint(-128, 128, feats.shape, generator=gen, device="cuda", dtype=torch.int8)
+    for ids in (l0, l1):
+        add_gather("int8 step rows", q8, ids)
+    ppi = torch.randn((PPI["n_nodes"], PPI["feat_dim"]), generator=gen, device="cuda")
+    add_gather("PPI-shaped rows", ppi, torch.randint(
+        0, PPI["n_nodes"], (256 * FANOUTS[0] * FANOUTS[1],), generator=gen, device="cuda",
+        dtype=torch.int32), "zero")
+    cols = torch.arange(adj.shape[1], dtype=torch.int32, device="cuda")
+    chunk_ids = torch.where(cols < deg[:EXACT_CHUNK, None], adj[:EXACT_CHUNK], -1).reshape(-1)
+    add_gather("exact layer 1 f32", torch.randn((n, 2 * DIMS[0]), generator=gen, device="cuda"),
+               chunk_ids, "zero")
+    return cases
+
+
+def check_mean_project_tiles(torch, mean_project, feats, gen):
+    """The persistent bf16 kernel where the timed cases do not go, within
+    MEAN_PROJECT_TOL of its plain version: a ragged last tile (6,143 and
+    6,145 roots: blocks of several tiles, the last one short), x 4 and 8
+    bytes past 16-byte alignment (cp.async words of 4 and 8 bytes) at 6,144
+    roots, W in a ring of chunk buffers (O = 256 at 6,144 roots), an odd D
+    (601) and a B between 4·132 and 8·132."""
+    n, d = feats.shape
+    ids = torch.randint(0, n, (6145 * 10,), generator=gen, device="cuda", dtype=torch.int32)
+    x = feats[ids.long()].view(6145, 10, d)
+    base = torch.empty(x.numel() + 8, dtype=x.dtype, device="cuda")
+    cases = [("ragged 6,143 roots", x[:6143], 128), ("ragged 6,145 roots", x, 128),
+             ("W ring, O = 256", x[:6144], 256), ("odd D", x[:6144, :, :601].contiguous(), 128),
+             ("B = 700", x[:700], 128)]
+    for off in (2, 4):  # bf16 elements: 4 and 8 bytes
+        xo = base[off:off + 6144 * 10 * d].view(6144, 10, d)
+        xo.copy_(x[:6144])
+        assert xo.data_ptr() % 16 == 2 * off
+        cases.append((f"x {2 * off} B off alignment", xo, 128))
+    for label, xc, o in cases:
+        w = (torch.randn((xc.shape[2], o), generator=gen, device="cuda") / d ** 0.5).to(xc.dtype)
+        plan = mean_project.bf16_plan(xc.shape[0], xc.shape[1], xc.shape[2], o, xc.data_ptr(),
+                                      xc.element_size(), torch.cuda.get_device_properties(
+                                          0).multi_processor_count)
+        ref = mean_project.mean_project_reference(xc, w).float()
+        torch.testing.assert_close(
+            mean_project.mean_project(xc, w).float(), ref, rtol=MEAN_PROJECT_TOL[0],
+            atol=MEAN_PROJECT_TOL[1] * ref.abs().max().item(),
+            msg=lambda m, label=label, plan=plan: f"mean_project {label} (plan {plan}): {m}")
 
 
 def kernel_case(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=1.0,
@@ -599,17 +721,21 @@ def time_cases(torch, cases, bw):
 
 def check_gather_shifts(torch, gather, gen):
     """gather_rows bitwise at every realignment shift: bf16, f32 and int8
-    tables of 1,204-byte rows (and int8 rows of 601 bytes, the 1-byte word
-    form) whose base and whose output's base each lie 0, 4, 8 or 12 bytes
-    past a 16-byte boundary, with ids naming the table's first and last rows
-    and ids out of range in both forms. The bytes around the output must
-    stay as they were."""
+    tables of 1,204-byte rows, int8 rows of 602 bytes (2-byte realignment)
+    and of 601 (the 1-byte word form), f32 rows of 200 bytes (16 lanes a
+    row) and of 1,024 (16-byte words, 2 a lane), bf16 rows of 136 bytes (16
+    lanes), whose base and whose output's base each lie at every offset
+    past a 16-byte boundary their element allows (4-byte steps for f32, 2
+    for the others), with ids naming the table's first and last rows and
+    ids out of range in both forms. The bytes around the output must stay
+    as they were."""
     n = SHIFT_ROWS
     ids = torch.cat([torch.tensor([0, n - 1, -n - 5, -1, n, n + 7], device="cuda"),
                      torch.randint(0, n, (506,), generator=gen, device="cuda")]).int()
     q = ids.shape[0]
     for dtype, width in ((torch.bfloat16, 602), (torch.float32, 301), (torch.int8, 1204),
-                         (torch.int8, 601)):
+                         (torch.int8, 601), (torch.int8, 602), (torch.float32, 50),
+                         (torch.float32, 256), (torch.bfloat16, 68)):
         size = torch.tensor([], dtype=dtype).element_size()
         pad = 16 // size
         if dtype == torch.int8:
@@ -618,9 +744,10 @@ def check_gather_shifts(torch, gather, gen):
         else:
             src = torch.randn((n * width + pad,), generator=gen, device="cuda").to(dtype)
         buf = torch.empty((q * width + pad,), dtype=dtype, device="cuda")
-        for t_off in (0, 4, 8, 12):
+        offsets = range(0, 16, max(size, 2))
+        for t_off in offsets:
             table = src[t_off // size:t_off // size + n * width].view(n, width)
-            for o_off in (0, 4, 8, 12):
+            for o_off in offsets:
                 out = buf[o_off // size:o_off // size + q * width].view(q, width)
                 assert table.data_ptr() % 16 == t_off and out.data_ptr() % 16 == o_off
                 for oob in ("clamp", "zero"):
@@ -631,8 +758,9 @@ def check_gather_shifts(torch, gather, gen):
                             and bool((around == 7).all())):
                         raise AssertionError(
                             f"gather_rows {dtype} ({n}, {width}) table +{t_off} B, out "
-                            f"+{o_off} B, oob={oob}: differs from its plain version or wrote "
-                            f"outside its output")
+                            f"+{o_off} B, oob={oob} (plan "
+                            f"{gather.gather_plan(width * size, t_off, o_off)}): differs from "
+                            f"its plain version or wrote outside its output")
 
 
 def check_sample_hop_edges(torch, sample_hop, gen):

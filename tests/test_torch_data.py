@@ -92,6 +92,31 @@ def test_infer_degrees_matches_reference():
     np.testing.assert_array_equal(infer_degrees(store.adj), j_infer(store.adj))
 
 
+def test_a_new_feature_storage_drops_the_cached_table():
+    """The upload cache keeps only the last storage form asked for: once no
+    graph holds the bf16 table, asking for the int8 one frees it; asking for
+    bf16 again uploads it anew."""
+    import gc
+    import weakref
+
+    problem = NodeProblem(tsyn.sbm_store(n_nodes=200, n_classes=3, feat_dim=8, seed=9))
+    g = problem.device_graph(train=True, dtype=torch.bfloat16, device="cpu")
+    first = weakref.ref(g.feats)
+    del g
+    gc.collect()
+    assert first() is not None  # the cache still holds it
+    q = problem.device_graph(train=True, dtype=torch.bfloat16, device="cpu", quantize=True)
+    gc.collect()
+    assert first() is None
+    assert problem.device_graph(train=False, dtype=torch.bfloat16, device="cpu",
+                                quantize=True).feats is q.feats
+    again = problem.device_graph(train=True, dtype=torch.bfloat16, device="cpu")
+    assert again.feats.dtype == torch.bfloat16
+    np.testing.assert_array_equal(again.feats.float().numpy(),
+                                  torch.from_numpy(problem.store.feats).to(torch.bfloat16)
+                                  .float().numpy())
+
+
 def test_iterate_matches_reference():
     store = tsyn.sbm_store(n_nodes=300, n_classes=3, feat_dim=4, seed=8)
     ours = list(NodeProblem(store).iterate("train", batch_size=50, shuffle=True, seed=3))

@@ -131,6 +131,26 @@ def test_shard_graph_adopts_given_feature_shards():
     assert k.feats is not g.feats and k.feats.shape[0] == 51
 
 
+@pytest.mark.parametrize("have, want", [("int8", "bf16"), ("bf16", "int8"),
+                                        ("bf16", "f32")])
+@pytest.mark.parametrize("csr", [False, True])
+def test_shard_graph_refuses_feature_shards_of_another_storage(have, want, csr):
+    """reuse_feats of the right shape but another storage (int8 rows with a
+    scale where dense bf16 is asked for, the reverse, or bf16 where f32 is)
+    raises instead of being adopted."""
+    t, _ = _stores()
+    storage = {"int8": dict(quantize=True, feat_dtype=torch.bfloat16),
+               "bf16": dict(feat_dtype=torch.bfloat16), "f32": {}}
+    shard = tp.shard_graph_csr if csr else tp.shard_graph
+    g, _ = shard(t, train=True, device="cpu", n_shards=2, shard=1, **storage[have])
+    with pytest.raises(ValueError, match="reuse_feats holds"):
+        shard(t, train=False, device="cpu", n_shards=2, shard=1,
+              reuse_feats=(g.feats, g.feat_scale), **storage[want])
+    h, _ = shard(t, train=False, device="cpu", n_shards=2, shard=1,
+                 reuse_feats=(g.feats, g.feat_scale), **storage[have])
+    assert h.feats is g.feats and h.feat_scale is g.feat_scale
+
+
 def test_epoch_batch_ids_exact_uniform_and_cycling():
     """Within an epoch each real fold node is drawn as often as any other
     ±1, the first ``count`` draws are a permutation, the wrapped padding is

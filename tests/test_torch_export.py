@@ -151,3 +151,30 @@ def test_cuda_without_a_card_exits_2(tmp_path, capsys):
     argv = GRAPH + ["--checkpoint", str(tmp_path / "c.npz"), "--out", str(tmp_path / "o.npy")]
     assert port_export(argv) == 2
     assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("version", [(1, 0), (2, 0), (3, 0)])
+def test_embedding_rows_read_from_every_npy_header_version(tmp_path, monkeypatch, version):
+    """The prep-embedding table's row count comes from its ``.npy`` member's
+    header, versions 1.0, 2.0 and 3.0 alike, without ``np.load``."""
+    import io
+    import zipfile
+
+    from tpu_sage_torch import export
+
+    path = tmp_path / "ckpt.npz"
+    with zipfile.ZipFile(path, "w") as zf:
+        for name, arr, v in (("params/agg_0/kernel.npy", np.zeros((3, 2), np.float32), (1, 0)),
+                             ("params/prep/embedding.npy", np.zeros((7, 4), np.float32),
+                              version)):
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, arr, version=v)
+            zf.writestr(name, buf.getvalue())
+    with zipfile.ZipFile(path) as zf:  # the magic string, then the version bytes
+        assert zf.read("params/prep/embedding.npy")[6:8] == bytes(version)
+
+    def no_load(*a, **k):
+        raise AssertionError("np.load was called")
+
+    monkeypatch.setattr(np, "load", no_load)
+    assert export._npz_embedding_rows(str(path)) == 7

@@ -247,16 +247,18 @@ def test_mean_project_f32_rows_under_bf16_weights_match_flax_dense(shape):
 
 
 def test_mean_project_bf16_plan_for_f32_rows():
-    """The bf16 kernel's launch shape for f32 rows: a stage holds at most
-    16 KB of rows whose bytes 16 divides (6 rows of the node-embedding
-    prep's 666 f32 columns, 32 of the linear prep's 64), a block's tile is a
-    16-byte multiple, so x streams by bulk copies from an aligned base."""
-    emb = mp.bf16_plan(25, 666, 128, 1 << 20, x_bytes=4)
-    assert emb["word"] == 16 and emb["g_rows"] == 6 and emb["smem"] <= 232_448
-    lin = mp.bf16_plan(25, 64, 128, 1 << 20, x_bytes=4)
-    assert lin["word"] == 16 and lin["g_rows"] == 32
+    """The bf16 kernel's launch shape for f32 rows: a stage holds rows whose
+    bytes 16 divides (12 rows of the node-embedding prep's 666 f32 columns,
+    32 KB beside a ring of W chunks; a linear prep's whole 4-root tile of
+    64-wide rows beside its resident W), a 4-root unit is a 16-byte
+    multiple, so x streams by bulk copies from an aligned base."""
+    emb = mp.bf16_plan(512, 25, 666, 128, 1 << 20, x_bytes=4)
+    assert emb["word"] == 16 and emb["g_rows"] == 12 and emb["smem"] <= 232_448
+    assert not emb["resident"] and emb["n_wbufs"] == 7
+    lin = mp.bf16_plan(512, 25, 64, 128, 1 << 20, x_bytes=4)
+    assert lin["word"] == 16 and lin["g_rows"] == 100 and lin["resident"]
     for d, o in ((666, 128), (64, 128), (33, 16), (2048, 512)):
-        plan = mp.bf16_plan(10, d, o, (1 << 20) + 4, x_bytes=4)
+        plan = mp.bf16_plan(512, 10, d, o, (1 << 20) + 4, x_bytes=4)
         assert plan["word"] == 4 and (plan["g_rows"] * d * 4) % 16 == 0
         assert plan["smem"] <= 232_448
 
@@ -285,29 +287,84 @@ def test_mean_project_backward_computes_only_the_grads_asked_for(dtype, needs):
 
 
 def test_mean_project_bf16_plan_at_main_path_shapes():
-    """The bf16 kernel's launch shape: 16-byte cp.async words for an aligned x
-    (a block's tile at D = 602 is 120,400 bytes), 4-byte words for an x
-    offset by 4 bytes, every W chunk resident beside the x ring, and shared
-    memory within a Hopper block's 232,448 bytes."""
-    layer0 = mp.bf16_plan(25, 602, 128, 1 << 20)
-    assert layer0["word"] == 16 and layer0["g_rows"] == 12 and layer0["n_wbufs"] == 10
+    """The bf16 kernel's launch shape at the main path's B = 512: a block
+    owns one tile of 4 roots (128 blocks), 16-byte cp.async words for an
+    aligned x (a 4-root tile at D = 602 is 120,400 bytes), 4-byte words for
+    an x offset by 4 bytes, every W chunk resident beside the x ring, and
+    shared memory within a Hopper block's 232,448 bytes."""
+    layer0 = mp.bf16_plan(512, 25, 602, 128, 1 << 20)
+    assert layer0["word"] == 16 and layer0["g_rows"] == 16 and layer0["n_wbufs"] == 10
+    assert layer0["tb"] == 4 and layer0["grid"] == 128 and layer0["resident"]
     assert layer0["smem"] <= 232_448
-    assert mp.bf16_plan(25, 602, 128, (1 << 20) + 4)["word"] == 4
-    assert mp.bf16_plan(25, 602, 128, (1 << 20) + 8)["word"] == 8
-    layer1 = mp.bf16_plan(25, 256, 128, 1 << 20)
-    assert layer1["word"] == 16 and layer1["g_rows"] == 32 and layer1["n_wbufs"] == 4
+    assert mp.bf16_plan(512, 25, 602, 128, (1 << 20) + 4)["word"] == 4
+    assert mp.bf16_plan(512, 25, 602, 128, (1 << 20) + 8)["word"] == 8
+    layer1 = mp.bf16_plan(512, 25, 256, 128, 1 << 20)
+    assert layer1["word"] == 16 and layer1["g_rows"] == 64 and layer1["n_wbufs"] == 4
     for d, o in ((602, 128), (256, 128), (602, 256), (2048, 512), (7, 3)):
-        plan = mp.bf16_plan(10, d, o, 1 << 20)
+        plan = mp.bf16_plan(512, 10, d, o, 1 << 20)
         assert (plan["g_rows"] * d * 2) % 16 == 0 and plan["o_pad"] >= max(o, 16)
         assert plan["o_pad"] & (plan["o_pad"] - 1) == 0
         assert 1 <= plan["n_wbufs"] <= -(-d // 64) and plan["smem"] <= 232_448
-    assert mp.bf16_plan(10, 602, 256, 1 << 20)["n_wbufs"] < 10  # W chunks form a ring
+    ring = mp.bf16_plan(512, 10, 602, 256, 1 << 20)
+    assert ring["n_wbufs"] < 10 and not ring["resident"]  # W chunks form a ring
     with pytest.raises(ValueError, match="4-byte aligned"):
-        mp.bf16_plan(25, 602, 128, (1 << 20) + 2)
+        mp.bf16_plan(512, 25, 602, 128, (1 << 20) + 2)
     with pytest.raises(ValueError, match="D <= 2048"):
-        mp.bf16_plan(25, 4096, 128, 1 << 20)
-    with pytest.raises(ValueError, match="do not fit in shared memory"):
-        mp.bf16_plan(25, 2048, 1024, 1 << 20)
+        mp.bf16_plan(512, 25, 4096, 128, 1 << 20)
+    # the widest W, 2048 x 1024, fits as a ring of one 64-row chunk buffer
+    widest = mp.bf16_plan(512, 25, 2048, 1024, 1 << 20)
+    assert widest["n_wbufs"] == 1 and widest["ksplit"] == 1 and widest["smem"] <= 232_448
+
+
+def _smem_of(plan, d, x_bytes=2):
+    """The layout csrc/mean_project.cu's Layout computes from a plan."""
+    k16 = -(-d // 16) * 16
+    ms = -(-(k16 // 2) // 32) * 32 + 4
+    n_nt = -(-plan["tb"] // 8)
+    xbuf = (plan["o_pad"] // 16) * n_nt * 512 if plan["ksplit"] == 2 else 0
+    ring_off = -(-(128 + plan["tb"] * ms * 4 + xbuf) // 128) * 128
+    slot = -(-(plan["g_rows"] * d * x_bytes) // 128) * 128
+    nc = -(-d // 64)
+    w = d * plan["o_pad"] * 2 if plan["n_wbufs"] >= nc else plan["n_wbufs"] * 64 * plan["o_pad"] * 2
+    return ring_off + 3 * slot + w
+
+
+@pytest.mark.parametrize("b, f, d, o, x_bytes, tb, grid, resident", [
+    (512, 25, 602, 128, 2, 4, 128, True),      # row 5: the main path's layer 0
+    (512, 25, 256, 128, 2, 4, 128, True),      # row 5: layer 1
+    (512, 25, 602, 64, 2, 4, 128, True),       # row 5t: a model axis of 2's slice
+    (512, 25, 256, 64, 2, 4, 128, True),
+    (6144, 25, 602, 128, 2, 16, 132, False),   # row 5u: the NCE step's layers
+    (6144, 25, 256, 128, 2, 16, 132, True),
+    (512, 25, 64, 128, 4, 4, 128, True),       # row 5x: the preps' f32 rows
+    (12800, 10, 64, 128, 4, 16, 132, True),
+    (512, 25, 666, 128, 4, 4, 128, False),
+    (12800, 10, 666, 128, 4, 16, 132, False),
+    (1000, 10, 602, 128, 2, 16, 132, False),   # a ragged B: 250 units over 132 blocks
+    (100, 25, 602, 128, 2, 4, 25, True),       # B < 132
+    (1, 25, 602, 128, 2, 4, 1, True),          # B = 1
+    (6144, 25, 601, 128, 2, 16, 132, False),   # an odd D (single columns, 8-byte words)
+    (6144, 10, 602, 256, 2, 16, 132, False),   # O = 256: W in a ring of chunk buffers
+])
+def test_mean_project_bf16_plan_tiles_grid_and_w(b, f, d, o, x_bytes, tb, grid, resident):
+    """The redesigned plan at every shape of rows 5, 5t, 5u and 5x and at
+    the edges: roots per tile (4 while B fits one 4-root unit per SM, else
+    16), a persistent grid of at most one block per SM over the 4-root
+    units, W resident or a ring, and the kernel's shared-memory layout
+    within 232,448 bytes."""
+    plan = mp.bf16_plan(b, f, d, o, 1 << 20, x_bytes=x_bytes)
+    assert (plan["tb"], plan["grid"], plan["resident"]) == (tb, grid, resident)
+    assert plan["grid"] == min(-(-b // 4), 132) and plan["smem"] == _smem_of(plan, d, x_bytes)
+    assert plan["smem"] <= 232_448 and (plan["g_rows"] * d * x_bytes) % 16 == 0
+    assert resident == (plan["n_wbufs"] == -(-d // 64))
+    pairs = (plan["o_pad"] // 16) * -(-plan["tb"] // 8)  # (16 columns, 8 roots) pairs
+    assert pairs * plan["ksplit"] <= 128 and plan["ksplit"] == (2 if pairs <= 8 else 1)
+    slot = plan["g_rows"] * d * x_bytes
+    assert plan["g_rows"] <= -(-plan["tb"] * f // 8) * 8  # a slot holds at most a tile
+    if resident:  # beside slots of 16 KB (one tile a block) or 32 KB, or a whole tile
+        assert slot >= (16384 if b <= 4 * 132 else 32768) or plan["g_rows"] >= plan["tb"] * f
+    else:  # the largest slots that leave W the fewest passes
+        assert slot <= (32768 if b <= 4 * 132 else 49152)
 
 
 @pytest.mark.parametrize("table_mod16", [0, 4, 8, 12])
@@ -336,28 +393,62 @@ def test_gather_plan_at_main_path_widths(table_mod16, out_mod16):
 
 def test_gather_plan_narrow_and_unaligned_rows():
     """Rows of at most 128 bytes share a warp in power-of-two lane groups;
-    rows whose width is not a multiple of 4 keep 2- or 1-byte words; wide
-    rows realign in chunks of at most 4 words per lane; a 2-byte base
-    offset keeps the word form."""
+    rows of odd width keep 1-byte words; 2-byte-aligned rows (a 602-byte
+    int8 row, a bf16 row at a 2-byte base offset) realign like 4-byte-aligned
+    ones; wide rows realign in chunks of at most 4 words per lane."""
     assert gather_plan(8, 4, 0) == {"form": "words", "word": 4, "lanes_per_row": 2,
                                     "words_per_lane": 0}
     assert gather_plan(100, 0, 0)["lanes_per_row"] == 32
     assert gather_plan(64, 0, 0) == {"form": "words", "word": 16, "lanes_per_row": 4,
                                      "words_per_lane": 0}
-    assert gather_plan(602, 0, 0) == {"form": "words", "word": 2, "lanes_per_row": 32,
-                                      "words_per_lane": 0}
-    assert gather_plan(601, 0, 0)["word"] == 1 and gather_plan(1204, 2, 0)["word"] == 2
-    assert gather_plan(1204, 2, 0)["form"] == "words"
+    assert gather_plan(602, 0, 0) == {"form": "realign", "word": 16, "lanes_per_row": 32,
+                                      "words_per_lane": 2}
+    assert gather_plan(601, 0, 0)["word"] == 1 and gather_plan(1204, 2, 0)["word"] == 16
+    assert gather_plan(1204, 2, 0)["form"] == "realign"
     assert gather_plan(2408, 0, 0)["words_per_lane"] == 4  # f32 602: two chunks
     assert gather_plan(4096, 0, 0)["form"] == "realign"
     for row_bytes in range(1, 3000, 7):
         for t in range(16):
             p = gather_plan(row_bytes, t, (3 * t) % 16)
             if p["form"] == "realign":
-                assert row_bytes % 4 == 0 and t % 4 == 0 and 1 <= p["words_per_lane"] <= 4
+                assert row_bytes % 2 == 0 and t % 2 == 0 and 1 <= p["words_per_lane"] <= 4
+                assert p["lanes_per_row"] in (8, 16, 32)
             else:
                 assert row_bytes % p["word"] == 0 and t % p["word"] == 0
                 assert p["lanes_per_row"] in (1, 2, 4, 8, 16, 32)
+
+
+@pytest.mark.parametrize("row_bytes, mods, plan", [
+    # PPI's 200-byte f32 rows: 14 words at most, 16 lanes, two rows a warp
+    (200, (0, 0), {"form": "realign", "word": 16, "lanes_per_row": 16, "words_per_lane": 1}),
+    (200, (4, 12), {"form": "realign", "word": 16, "lanes_per_row": 16, "words_per_lane": 1}),
+    # the narrowest realigned rows: 10 and 9 words, 16 lanes; 8 lanes at most 8 words
+    (136, (4, 0), {"form": "realign", "word": 16, "lanes_per_row": 16, "words_per_lane": 1}),
+    (130, (2, 0), {"form": "realign", "word": 16, "lanes_per_row": 16, "words_per_lane": 1}),
+    # the int8 step's 602-byte rows, 2-byte aligned: 39 words, not 301 2-byte ones
+    (602, (0, 0), {"form": "realign", "word": 16, "lanes_per_row": 32, "words_per_lane": 2}),
+    (602, (2, 14), {"form": "realign", "word": 16, "lanes_per_row": 32, "words_per_lane": 2}),
+    # exact inference's f32 rows 256 and 512 wide, 16-byte aligned: words,
+    # 2 and 4 per lane issued before the stores
+    (1024, (0, 0), {"form": "words", "word": 16, "lanes_per_row": 32, "words_per_lane": 0}),
+    (2048, (0, 0), {"form": "words", "word": 16, "lanes_per_row": 32, "words_per_lane": 0}),
+    (1024, (8, 0), {"form": "realign", "word": 16, "lanes_per_row": 32, "words_per_lane": 3}),
+    (2064, (0, 0), {"form": "realign", "word": 16, "lanes_per_row": 32, "words_per_lane": 4}),
+])
+def test_gather_plan_lanes_per_row_and_two_byte_realignment(row_bytes, mods, plan):
+    """The realign form's lanes per row follow the row's span of aligned
+    16-byte words (the smallest power of two of at least 8 that covers it,
+    at most 32); 2-byte-aligned rows realign; 16-byte-aligned rows up to
+    2,048 bytes move as 16-byte words; each realign plan's lanes and words
+    per lane cover the span in at most 4 chunks."""
+    got = gather_plan(row_bytes, *mods)
+    assert got == plan
+    if got["form"] == "realign":
+        unit = 2 if (row_bytes | mods[0] | mods[1]) % 4 else 4
+        span = (16 - unit + row_bytes + 15) // 16
+        lanes = got["lanes_per_row"]
+        assert lanes >= min(32, span) and (lanes == 8 or lanes // 2 < span)
+        assert span <= 4 * lanes * got["words_per_lane"]
 
 
 def test_gather_rows_into_runs_on_cuda_only():
@@ -437,5 +528,6 @@ def test_mean_project_source_streams_x_asynchronously_and_uses_tensor_cores():
     text = open(_build.library_path("mean_project")[0]).read()
     for needle in ("cp.async.bulk.shared", "mbarrier.try_wait", "cp.async.cg.shared.global",
                    "cp.async.ca.shared.global [%0], [%1], 4;",
-                   "ldmatrix.sync.aligned.m8n8.x4.trans", "mma.sync.aligned.m16n8k16"):
+                   "ldmatrix.sync.aligned.m8n8.x4.trans", "mma.sync.aligned.m16n8k16",
+                   "c_tile += tb;", "project_tile<IPW>"):
         assert needle in text, needle

@@ -14,8 +14,8 @@ import torch
 
 from tpu_sage.sample import sampler as jsampler
 from tpu_sage_torch.kernels.sample_hop import sample_hop, sample_hop_reference
-from tpu_sage_torch.sample.sampler import (pack_adjacency, sample_tree, sample_tree_packed,
-                                           uniform_neighbor_sample)
+from tpu_sage_torch.sample.sampler import (gather_levels, pack_adjacency, sample_tree,
+                                           sample_tree_packed, uniform_neighbor_sample)
 
 ONE_MINUS_ULP = np.nextafter(np.float32(1.0), np.float32(0.0))
 
@@ -161,6 +161,23 @@ def test_packed_sampler_bit_equal_to_reference_and_to_sample_tree(seed):
     for a, b, c in zip(ours, want, fused):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
         assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_levels_bitwise_the_reference(dtype):
+    """gather_levels: one gather of the concatenated levels, split back into
+    levels, bitwise the JAX package's on the same tree and table."""
+    adj, deg = _graph()
+    ids = np.array([0, 1, 2, 3, 4, 2], dtype=np.int32)
+    key = jax.random.key(5)
+    levels = jsampler.sample_tree(key, jnp.asarray(adj), jnp.asarray(deg), jnp.asarray(ids),
+                                  (5, 3))
+    feats = np.random.default_rng(3).normal(size=(5, 7)).astype(np.float32)
+    want = jsampler.gather_levels(jnp.asarray(feats, dtype=dtype), levels)
+    ours = gather_levels(_t(feats).to(getattr(torch, dtype)), [_t(l) for l in levels])
+    assert [tuple(o.shape) for o in ours] == [(6, 7), (30, 7), (90, 7)]
+    for a, b in zip(ours, want):
+        np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32))
 
 
 def test_packed_sampler_draws_the_same_tree_from_one_generator_state():

@@ -25,18 +25,35 @@ for are built, with this checkout's ``nvcc`` flags, into
   ids, out, n_table, n_roots, d, fanout, is_bf16, stream)`` and
   ``tsg_mean_project(x, w, out, b, f, d, o, is_bf16, stream)``, the first
   interface of both kernels.
+- ``gather11``: ``tsg_gather_rows(table, ids, out, n_table, q, row_bytes,
+  word_bytes, lanes_per_row, words_per_lane, oob_zero, stream)`` launched
+  with the other checkout's own ``gather_plan`` (its
+  ``tpu_sage_torch/kernels/gather.py``, loaded by path), against this
+  ``gather_rows``: the main path's feature gathers (q = 512, 12,800), the
+  int8 step's 602-byte rows (q = 512, 12,800), PPI-shaped 200-byte f32
+  rows (56,944 x 50, q = 64,000) and exact inference's chunk of 524,288
+  ids from f32 tables 128, 256, 512 and 602 wide and the bf16 one.
+- ``mean_project13``: ``tsg_mean_project_bf16(x, w, out, b, f, d, o_pad,
+  x_bytes, word_bytes, g_rows, n_wbufs, smem_bytes, stream)`` launched with
+  the other checkout's own ``bf16_plan``, against this ``mean_project``:
+  the main path's two layers (512, 25, 602 / 256) at O = 128 and at a model
+  axis of 2's O = 64, the NCE step's layers (6,144 roots), and the preps'
+  f32 rows (512 x 25 and 12,800 x 10, 64 and 666 wide).
 
 The inputs are the ones ``chip_smoke.py`` phase 3 uses (Reddit-shaped
-``bench_store``, batch 512, fanouts (25, 10), seed 0). Each pair is timed in
-the order other, this, this, other (``bench.timing.cuda_ms``, median of 20
-L2-cold calls each); one JSON line reports both times of each side and the
-largest difference of their outputs, after the card's name and power limit.
+``bench_store``, batch 512, fanouts (25, 10), seed 0), and at the other
+shapes rows of its table or random values made from a seeded generator on
+the card. Each pair is timed in the order other, this, this, other
+(``bench.timing.cuda_ms``, median of 20 L2-cold calls each); one JSON line
+reports both times of each side and the largest difference of their
+outputs, after the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -54,7 +71,22 @@ _OTHER = {  # pair -> the other checkout's (source, entry point, argtypes) it ca
     "fanout_mean": (("gather_mean", "tsg_gather_fanout_mean",
                      (_P, _P, _P, _LL, _LL, _I, _I, _I, _P)),),
     "mean_project": (("mean_project", "tsg_mean_project", (_P, _P, _P, _LL, _I, _I, _I, _I, _P)),),
+    "gather11": (("gather", "tsg_gather_rows",
+                  (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),),
+    "mean_project13": (("mean_project", "tsg_mean_project_bf16",
+                        (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P)),),
 }
+PPI_ROWS, EXACT_CHUNK = (56_944, 50), 4096  # chip_smoke.py's PPI stand-in; a node chunk
+
+
+def _other_module(root: str, name: str):
+    """The other checkout's ``tpu_sage_torch/kernels/<name>.py``, loaded by
+    path under a name of its own (its plan functions are pure)."""
+    path = os.path.join(root, "tpu_sage_torch", "kernels", name + ".py")
+    spec = importlib.util.spec_from_file_location(f"_kernel_ab_other_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def _build_other(root: str, name: str, entry: str, argtypes):
@@ -91,8 +123,8 @@ def main(argv=None) -> int:
     other = {}
     for pair in pairs_wanted:
         for name, entry, argtypes in _OTHER[pair]:
-            if entry not in other:
-                other[entry] = _build_other(args.other, name, entry, argtypes)
+            if (entry, len(argtypes)) not in other:
+                other[entry, len(argtypes)] = _build_other(args.other, name, entry, argtypes)
 
     store = bench_store(cache_dir="0")
     graph = NodeProblem(store).device_graph(train=True, dtype=torch.bfloat16, device="cuda")
@@ -109,7 +141,7 @@ def main(argv=None) -> int:
         q, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
         out = torch.empty((q, table.shape[1]), dtype=table.dtype, device="cuda")
         word = gather._word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
-        _build.check_launch(other["tsg_gather_rows"](
+        _build.check_launch(other["tsg_gather_rows", 9](
             table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0], q, row_bytes,
             word, 0, stream()), "other tsg_gather_rows")
         return out
@@ -119,14 +151,14 @@ def main(argv=None) -> int:
         cols = sample_hop.hop_columns(u, deg).contiguous()
         rows = other_gather(adj, ids)
         out = torch.empty(cols.shape, dtype=torch.int32, device="cuda")
-        _build.check_launch(other["tsg_select_columns"](
+        _build.check_launch(other["tsg_select_columns", 7](
             rows.data_ptr(), cols.data_ptr(), out.data_ptr(), rows.shape[0], rows.shape[1],
             cols.shape[1], stream()), "other tsg_select_columns")
         return out
 
     def other_fanout_mean():
         out = torch.empty((l2.shape[0] // 10, d), dtype=torch.float32, device="cuda")
-        _build.check_launch(other["tsg_gather_fanout_mean"](
+        _build.check_launch(other["tsg_gather_fanout_mean", 9](
             feats.data_ptr(), l2.data_ptr(), out.data_ptr(), n, out.shape[0], d, 10, 1,
             stream()), "other tsg_gather_fanout_mean")
         return out
@@ -134,12 +166,79 @@ def main(argv=None) -> int:
     def other_mean_project(x, w):
         b, f, dx = x.shape
         out = torch.empty((b, w.shape[1]), dtype=x.dtype, device="cuda")
-        _build.check_launch(other["tsg_mean_project"](
+        _build.check_launch(other["tsg_mean_project", 9](
             x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, dx, w.shape[1], 1, stream()),
             "other tsg_mean_project")
         return out
 
+    def other_gather11(table, ids, oob="clamp"):
+        q, row_bytes = ids.shape[0], table.shape[1] * table.element_size()
+        out = torch.empty((q, table.shape[1]), dtype=table.dtype, device="cuda")
+        plan = other_gather_mod.gather_plan(row_bytes, table.data_ptr() % 16,
+                                            out.data_ptr() % 16)
+        _build.check_launch(other["tsg_gather_rows", 11](
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), table.shape[0], q, row_bytes,
+            plan["word"], plan["lanes_per_row"], plan["words_per_lane"], int(oob == "zero"),
+            stream()), "other tsg_gather_rows (11 arguments)")
+        return out
+
+    def other_mean_project13(x, w):
+        b, f, dx = x.shape
+        plan = other_mp_mod.bf16_plan(f, dx, w.shape[1], x.data_ptr(), x.element_size())
+        out = torch.empty((b, plan["o_pad"]), dtype=torch.bfloat16, device="cuda")
+        _build.check_launch(other["tsg_mean_project_bf16", 13](
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, dx, plan["o_pad"],
+            x.element_size(), plan["word"], plan["g_rows"], plan["n_wbufs"], plan["smem"],
+            stream()), "other tsg_mean_project_bf16 (13 arguments)")
+        return out[:, :w.shape[1]]
+
     pairs = {}
+    if "gather11" in pairs_wanted:
+        other_gather_mod = _other_module(args.other, "gather")
+        q8 = torch.randint(-128, 128, feats.shape, generator=gen, device="cuda",
+                           dtype=torch.int8)
+        ppi = torch.randn(PPI_ROWS, generator=gen, device="cuda")
+        ppi_ids = torch.randint(0, PPI_ROWS[0], (256 * 25 * 10,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        cols = torch.arange(adj.shape[1], dtype=torch.int32, device="cuda")
+        chunk = torch.where(cols < degrees[:EXACT_CHUNK, None], adj[:EXACT_CHUNK],
+                            -1).reshape(-1)
+        cases = [("feats bf16", feats, l0, "clamp"), ("feats bf16", feats, l1, "clamp"),
+                 ("int8 rows", q8, l0, "clamp"), ("int8 rows", q8, l1, "clamp"),
+                 ("PPI-shaped f32", ppi, ppi_ids, "zero")]
+        for width in (128, 256, 512):
+            cases.append((f"exact f32 {width} wide", torch.randn(
+                (n, width), generator=gen, device="cuda"), chunk, "zero"))
+        cases += [("exact f32 602 wide", feats.float(), chunk, "zero"),
+                  ("exact bf16 602 wide", feats, chunk, "zero")]
+        for label, table, ids, oob in cases:
+            pairs[f"gather_rows {label} {tuple(table.shape)} q={ids.shape[0]}"] = (
+                lambda t=table, i=ids, o=oob: other_gather11(t, i, o),
+                lambda t=table, i=ids, o=oob: gather.gather_rows(t, i, o))
+    if "mean_project13" in pairs_wanted:
+        other_mp_mod = _other_module(args.other, "mean_project")
+        ids_u = torch.randint(0, n, (6144 * 25,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        prep_w = torch.randn((d, 64), generator=gen, device="cuda") / d ** 0.5
+        xs = [("layer 0", feats[l1.long()].view(512, 25, d)),
+              ("layer 1", torch.relu(torch.randn((512, 25, 256), generator=gen,
+                                                 device="cuda")).to(torch.bfloat16)),
+              ("NCE layer 0", feats[ids_u.long()].view(6144, 25, d)),
+              ("NCE layer 1", torch.relu(torch.randn((6144, 25, 256), generator=gen,
+                                                     device="cuda")).to(torch.bfloat16))]
+        for ids, f in ((l1, 25), (l2, 10)):
+            rows = feats[ids.long()].float()
+            xs.append(("linear prep f32", (rows @ prep_w).view(-1, f, 64)))
+            emb = torch.randn((ids.shape[0], 64), generator=gen, device="cuda") / 8
+            xs.append(("node_embedding prep f32", torch.cat([rows, emb], 1).view(-1, f, d + 64)))
+            del rows, emb
+        for label, x in xs:
+            for o in ((128, 64) if label.startswith("layer") else (128,)):
+                w = (torch.randn((x.shape[2], o), generator=gen, device="cuda")
+                     / x.shape[2] ** 0.5).to(torch.bfloat16)
+                pairs[f"mean_project {label} x {tuple(x.shape)}, W {tuple(w.shape)}"] = (
+                    lambda x=x, w=w: other_mean_project13(x, w),
+                    lambda x=x, w=w: mean_project.mean_project(x, w))
     if "gather" in pairs_wanted:
         for ids in (l0, l1, l2[:51200]):
             pairs[f"gather_rows feats bf16 {tuple(feats.shape)} q={ids.shape[0]}"] = (

@@ -110,9 +110,14 @@ class NodeProblem:
         halves the dominant gather traffic). ``csr`` uploads CSR adjacency
         (``nnz`` ids instead of ``n·max_degree``); ``quantize`` stores the
         features int8 with per-column scales, ``dtype`` then being the
-        compute dtype (``data/quantize.py``)."""
+        compute dtype (``data/quantize.py``). The cache keeps the graphs of
+        one feature storage ``(dtype, device, quantize)``: asking for
+        another drops them, as the store drops its table."""
         key = (train, dtype, str(torch.device(device)), csr, quantize)
         if key not in self._device_graphs:
+            storage = (key[1], key[2], key[4])
+            for k in [k for k in self._device_graphs if (k[1], k[2], k[4]) != storage]:
+                del self._device_graphs[k]
             to_dev = self.store.to_device_csr if csr else self.store.to_device
             self._device_graphs[key] = to_dev(
                 train=train, dtype=dtype, device=device, quantize=quantize

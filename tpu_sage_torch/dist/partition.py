@@ -250,6 +250,25 @@ def _put_features(store: GraphStore, local: np.ndarray, device: torch.device,
     return host.to(device=device, dtype=dtype).contiguous(), None
 
 
+def _reusable(reuse_feats, shape: Tuple[int, int], quantize: bool,
+              feat_dtype: Optional[torch.dtype]):
+    """``reuse_feats`` if it is the table the requested storage would
+    upload, None when its shape differs (a partition of another size:
+    upload fresh); raises on a dtype, or a ``feat_scale`` presence, that
+    ``quantize`` and ``feat_dtype`` do not imply (int8 rows with a scale, or
+    dense rows in ``feat_dtype`` without one)."""
+    if reuse_feats is None or tuple(reuse_feats[0].shape) != shape:
+        return None
+    feats, scale = reuse_feats
+    want = torch.int8 if quantize else (feat_dtype or torch.float32)
+    if feats.dtype != want or (scale is not None) != quantize:
+        raise ValueError(
+            f"reuse_feats holds {feats.dtype} rows {'with' if scale is not None else 'without'}"
+            f" a feat_scale; the requested storage (quantize={quantize}, feat_dtype="
+            f"{feat_dtype}) uploads {want} rows {'with' if quantize else 'without'} one")
+    return reuse_feats
+
+
 def _targets(store: GraphStore, targets: np.ndarray, device: torch.device) -> torch.Tensor:
     dtype = torch.int32 if store.task == "classification" else torch.float32
     return torch.as_tensor(targets).to(device=device, dtype=dtype)
@@ -276,10 +295,8 @@ def shard_graph(
     s = _rank() if shard is None else shard
     device = torch.device(device)
     arrays, m = _local_arrays(store, n_shards, s, train)
-    if reuse_feats is not None and tuple(reuse_feats[0].shape) != (m, store.feat_dim):
-        reuse_feats = None
-    feats, scale = reuse_feats or _put_features(store, arrays["feats"], device, quantize,
-                                                feat_dtype)
+    feats, scale = (_reusable(reuse_feats, (m, store.feat_dim), quantize, feat_dtype)
+                    or _put_features(store, arrays["feats"], device, quantize, feat_dtype))
     graph = DeviceGraph(
         adj=_int32(arrays["adj"], device),
         degrees=_int32(arrays["degrees"], device),
@@ -310,10 +327,8 @@ def shard_graph_csr(
     indptr, ind = csr_from_padded(arrays["adj"], arrays["degrees"])
     block = pad_indices_for_window(ind, window).reshape(-1, window)
     block = np.concatenate([block, np.zeros((r_max - block.shape[0], window), np.int32)])
-    if reuse_feats is not None and tuple(reuse_feats[0].shape) != (m, store.feat_dim):
-        reuse_feats = None
-    feats, scale = reuse_feats or _put_features(store, arrays["feats"], device, quantize,
-                                                feat_dtype)
+    feats, scale = (_reusable(reuse_feats, (m, store.feat_dim), quantize, feat_dtype)
+                    or _put_features(store, arrays["feats"], device, quantize, feat_dtype))
     graph = CSRShardGraph(
         indptr=_int32(indptr, device),
         indices=_int32(block, device),

@@ -40,8 +40,12 @@ import numpy as np
 def _npz_embedding_rows(path):
     """Row count of the checkpoint's 2-D prep-embedding table, read from the
     ``.npy`` member headers of the npz zip, so a large transductive table is
-    not decompressed just to compare ``shape[0]``. Falls back to ``np.load``
-    if the archive layout is unexpected; None when no table matches."""
+    not decompressed just to compare ``shape[0]``. Header versions 1.0, 2.0
+    and 3.0 (2.0's layout, the header in UTF-8) are read in place; falls back
+    to ``np.load`` if the archive layout is unexpected; None when no table
+    matches."""
+    import ast
+    import struct
     import zipfile
 
     from numpy.lib import format as npf
@@ -57,11 +61,14 @@ def _npz_embedding_rows(path):
                             shape, _, _ = npf.read_array_header_1_0(f)
                         elif version == (2, 0):
                             shape, _, _ = npf.read_array_header_2_0(f)
+                        elif version == (3, 0):
+                            (length,) = struct.unpack("<I", f.read(4))
+                            shape = ast.literal_eval(f.read(length).decode("utf8"))["shape"]
                         else:  # a future .npy format: use the np.load fallback
                             raise ValueError("unknown npy header version")
                     if len(shape) == 2:
                         return int(shape[0])
-    except (zipfile.BadZipFile, ValueError, KeyError):
+    except (zipfile.BadZipFile, ValueError, KeyError, SyntaxError):
         with np.load(path) as data:
             for k in data.files:
                 if "prep" in k and "embedding" in k and data[k].ndim == 2:

@@ -183,12 +183,15 @@ class GraphStore:
 
     def _device_feats(self, dtype: torch.dtype, device: torch.device, quantize: bool = False):
         """Feature upload, dense in ``dtype`` or int8 with per-column scales
-        (``quantize``; ``dtype`` is then the compute dtype), cached per
-        ``(dtype, device, quantize)``: the train-edge and full-edge graphs
-        differ only in adjacency and share one table."""
+        (``quantize``; ``dtype`` is then the compute dtype), cached for the
+        last ``(dtype, device, quantize)`` asked for: the train-edge and
+        full-edge graphs differ only in adjacency and share one table. A new
+        key drops the cached table, so a sweep over storage forms keeps no
+        earlier table resident beyond the graphs that hold it."""
         cache = self.__dict__.setdefault("_device_feats_cache", {})
         key = (dtype, str(device), quantize)
         if key not in cache:
+            cache.clear()
             if quantize:
                 cache[key] = quantize_feats(self.feats, out_dtype=dtype, device=device)
             else:

@@ -12,43 +12,67 @@
 // Pallas) and stays two torch.matmul calls in the port.
 //
 // Bound on the H100: bytes. x must be read once (512 x 25 x 602 bf16 =
-// 15.4 MB at layer 0, 512 x 25 x 256 = 6.6 MB at layer 1); W (<= 154 KB)
-// and the (B, O) output are small, and the 2*B*D*O operations are far below
-// the tensor cores' rate.
+// 15.4 MB at layer 0, 512 x 25 x 256 = 6.6 MB at layer 1; 341 MB for a
+// prep's f32 rows at 12,800 x 10 x 666); W (<= 171 KB) and the (B, O)
+// output are small, and the 2*B*D*O operations are far below the tensor
+// cores' rate. What sets the rate is the x bytes in flight on each SM, kept
+// up without a break from one tile to the next; W (170,496 B at D = 666,
+// O = 128) must not be staged from L2 for every 4 roots, as a design of one
+// 4-root block per tile did (1.6 times the x it streamed at 12,800 roots).
 //
 // bf16 design (bf16 W; x bf16, or f32 rows of a prep's output, which only
-// widen the stream's rows and the words the reduction loads). A block owns
-// kTB = 4 roots (128 blocks at B = 512, one per SM, 16 warps) and its x
-// tile, the contiguous TB*F*D*sizeof(x) bytes of its roots:
-//   1. x streams through a ring of kStages = 4 shared-memory slots of G rows
-//      of D (about 16 KB: G = 12 at D = 602), three slots in flight. When
-//      x's base address and a block's tile length are 16-byte multiples, one
-//      thread fills a slot with one bulk asynchronous copy (cp.async.bulk,
-//      the TMA engine, completing on an mbarrier per slot); otherwise the
-//      threads fill it with cp.async words of 8 or 4 bytes, the widest that
-//      divides both (a second code path picked by the caller, not a
-//      fallback: a 4-byte-aligned x streams the same way, only narrower).
-//   2. W is staged through shared memory in K-chunks of 64 rows with 16-byte
-//      cp.async words: chunk c joins the copy group of stream iteration c,
-//      so W arrives from L2 while x is still streaming from HBM, and the
-//      warps that own no reduction column issue those copies, beside the
-//      reduction. W rows are stored unpadded with their 16-byte words
-//      permuted by row (word ^ (row & 7)), so the ldmatrix reads below hit
-//      distinct banks. When W does not fit beside the x ring, its chunk
-//      buffers form a ring refilled during the product.
-//   3. Each thread owns column pairs tid + 512*u of a row (bf16x2 or float2
-//      words; single columns when D is odd) and reduces the fanout axis in
-//      f32 registers as the rows arrive, in the order j = 0, 1, ...; after
-//      j = F - 1 it divides by F, rounds to bf16 and stores the (TB, D) mean
-//      tile, zero-padded to a multiple of 16 in K, in shared memory.
+// widen the stream's rows and the words the reduction loads). Persistent
+// blocks of 16 warps: a grid of min(ceil(B / 4), SMs) blocks, each taking
+// an even share of the 4-root units (so no block has more than 4 roots
+// above another's) and walking it in tiles of TB roots (the plan picks TB:
+// 4 while B fits one 4-root unit per SM, as on the main path's B = 512, so
+// a block then owns one tile; 16 beyond). A tile's x is the contiguous
+// TB*F*D*sizeof(x) bytes of its roots.
+//   1. W is staged into shared memory with 16-byte cp.async words, rows
+//      stored unpadded with their 16-byte words permuted by row
+//      (word ^ (row & 7)) so the ldmatrix reads below hit distinct banks;
+//      its chunks of 64 rows ride in the copy groups of the first tile's
+//      stages, all issued by its last stage but one, by the warps that own
+//      no reduction column. The plan keeps
+//      W resident (staged once per block) when it fits beside x slots of at
+//      least 16 KB (one tile a block) or 32 KB (several); otherwise its
+//      chunks form a ring of buffers refilled during each tile's product, so
+//      that x's slots stay large: at 6,144 roots of D = 602 a ring of 5 W
+//      chunks beside 38 KB slots beats a resident W beside 19 KB ones.
+//   2. x streams through a ring of kStages = 3 shared-memory slots of G
+//      rows of D (up to 32 KB at one tile a block, 48 KB at several: the
+//      bytes in flight set the stream's rate), two in flight, as one stream
+//      across the block's tiles: a tile's stages start in a fresh slot, and
+//      the next tile's first
+//      stages are in flight while this tile's product and store run. When
+//      x's base address and a 4-root unit's length are 16-byte multiples,
+//      one thread fills a slot with one bulk asynchronous copy
+//      (cp.async.bulk, the TMA engine, completing on an mbarrier per slot);
+//      otherwise the threads fill it with cp.async words of 8 or 4 bytes,
+//      the widest that divides both (a second code path picked by the
+//      caller, not a fallback: a 4-byte-aligned x streams the same way, only
+//      narrower). The cursors of both ends advance by increments: no
+//      division on the per-stage path.
+//   3. Every warp reduces, whatever D: the warps form groups of the fewest
+//      warps whose lanes cover a row's column pairs (bf16x2 or float2 words;
+//      single columns when D is odd), and group p takes the tile's roots
+//      r = p, p + groups, ... (at D = 64, 16 groups of one warp; at D = 602,
+//      one group of all 16, 10 of them with columns). Each thread reduces
+//      its columns of its group's roots in f32 registers as the rows arrive,
+//      in the order j = 0, 1, ... (a root's rows may span two slots: its
+//      group carries the sum across), and after j = F - 1 divides by F,
+//      rounds to bf16 and stores the root's row of the (TB, D) mean tile,
+//      zero-padded to a multiple of 16 in K.
 //   4. The product runs on the tensor cores as out^T = W^T mean^T with
 //      mma.sync.m16n8k16 (bf16 in, f32 accumulate): A fragments come from W
-//      with ldmatrix.x4.trans, B fragments (N = 8, roots 4..7 zero) from the
-//      mean tile. Warp w takes the m-tiles of 16 output columns w % 8 + 8*i
-//      over the W chunks of parity w / 8; a chunk's four k-steps load their
-//      fragments before their products issue, into two accumulators (even
-//      and odd k-steps). The two halves meet in shared memory, and the sum
-//      is rounded once to bf16.
+//      with ldmatrix.x4.trans, B fragments from the mean tile, the roots
+//      filling N (8 a fragment; roots 4..7 zero at TB = 4). The work items
+//      are (16 output columns, 8 roots) pairs, split in two halves of K (the
+//      64-row chunks of each parity) when there are at most 8 pairs, spread
+//      over the 16 warps (IPW items a warp). An item's four k-steps load
+//      their fragments before their products issue, into two accumulators
+//      (even and odd k-steps); the halves of K meet in shared memory, and
+//      the sum is rounded once to bf16 and stored.
 // The f32 path stays exact f32 on the SIMT units (no TF32): a block reduces
 // four roots' mean into shared memory and its warps accumulate partial
 // products over slices of D that are added in a fixed order.
@@ -61,13 +85,13 @@ namespace {
 
 // ---- bf16 path -----------------------------------------------------------
 
-constexpr int kTB = 4;          // roots per block
 constexpr int kThreads = 512;   // 16 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kStages = 4;      // x ring slots
+constexpr int kStages = 3;      // x ring slots
 constexpr int kKC = 64;         // W rows per chunk
 constexpr int kKS = kKC / 16;   // k-steps per chunk
 constexpr int kBarBytes = 128;  // the x ring's mbarriers (bulk copies)
+constexpr int kMaxSmem = 232448;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -142,9 +166,33 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// The shared-memory layout of the bf16 kernel, from its runtime shape; the
+// plan (kernels/mean_project.py::bf16_plan) computes the same numbers.
+struct Layout {
+  int k16;         // D rounded up to 16 (the product's K)
+  int ms;          // mean tile row stride in 32-bit words: 4 mod 32, so the
+                   // 8 roots x 4 words of a B fragment hit distinct banks
+  int xbuf_bytes;  // the K halves' hand-over: 512 B per (columns, roots) pair
+  int ring_off;    // the x ring's offset, and each slot's bytes: 128-byte multiples
+  int slot_bytes;
+  size_t w_bytes;  // W's buffers, after the ring
+  size_t total;
+  __host__ __device__ Layout(int d, int o_pad, int xb, int g_rows, int n_wbufs, int tb,
+                             int ksplit) {
+    k16 = (d + 15) & ~15;
+    ms = (((k16 / 2) + 31) & ~31) + 4;
+    xbuf_bytes = ksplit == 2 ? (o_pad / 16) * ((tb + 7) / 8) * 512 : 0;
+    ring_off = (kBarBytes + tb * ms * 4 + xbuf_bytes + 127) & ~127;
+    slot_bytes = (g_rows * d * xb + 127) & ~127;
+    const int nc = (d + kKC - 1) / kKC;
+    w_bytes = n_wbufs >= nc ? (size_t)d * o_pad * 2 : (size_t)n_wbufs * kKC * o_pad * 2;
+    total = (size_t)ring_off + (size_t)kStages * slot_bytes + w_bytes;
+  }
+};
+
 // Copy `bytes` from global to a ring slot in cp.async words of W bytes; a
-// ragged last block's tile may end inside a word, and its tail is copied
-// plainly (the barrier before the slot is read orders those stores).
+// ragged last tile may end inside a word, and its tail is copied plainly
+// (the barrier before the slot is read orders those stores).
 template <int W>
 __device__ __forceinline__ void copy_words(unsigned char* slot, const unsigned char* src, int bytes,
                                            int tid) {
@@ -162,16 +210,17 @@ __device__ __forceinline__ void copy_words(unsigned char* slot, const unsigned c
 __device__ __forceinline__ int w_word(int r, int col, int swz) { return col ^ (r & swz); }
 
 // Issue W rows [c*kKC, c*kKC + rows) into chunk buffer `buf` as 16-byte
-// cp.async words, in the caller's open group, from threads t < nthreads. A
-// W row is o_pad/8 words (o_pad a power of two, 16..1024): thread t copies
-// word t % per_row of rows t / per_row, + nthreads / per_row, ...
+// cp.async words, in the caller's open group, from threads t < nthreads (a
+// multiple of the words per row). A W row is o_pad/8 words (o_pad a power of
+// two, 16..1024): thread t copies word t % per_row of rows t / per_row,
+// + nthreads / per_row, ...
 __device__ __forceinline__ void issue_w_chunk(const __nv_bfloat16* w, unsigned char* wbufs, int c,
                                               int buf, int d, int o_pad, int t, int nthreads) {
   const int rows = min(kKC, d - c * kKC);
   const int shift = __ffs(o_pad / 8) - 1;  // log2(words per W row)
   const int swz = min(7, (1 << shift) - 1);
   const int col = t & ((1 << shift) - 1);
-  const int rstep = nthreads >> shift;  // nthreads is a multiple of the words per row
+  const int rstep = nthreads >> shift;
   const int row_bytes = o_pad * 2;
   unsigned char* dst = wbufs + (size_t)buf * kKC * row_bytes;
   const unsigned char* src =
@@ -182,14 +231,14 @@ __device__ __forceinline__ void issue_w_chunk(const __nv_bfloat16* w, unsigned c
                  src + (int64_t)r * row_bytes);
 }
 
-// Load row i's words of this thread (u < NU: word tid + 512*u) as f32; XT is
-// x's element type, a word one element or (PAIRS) two.
+// Load row i's words of this thread (u < NU: word p0 + gsize*u) as f32; XT
+// is x's element type, a word one element or (PAIRS) two.
 template <int NU, bool PAIRS, typename XT>
-__device__ __forceinline__ void load_row(const unsigned char* slot, int i, int words, int tid,
-                                         float* v) {
+__device__ __forceinline__ void load_row(const unsigned char* slot, int i, int words, int p0,
+                                         int gsize, float* v) {
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
-    const int p = tid + u * kThreads;
+    const int p = p0 + u * gsize;
     if constexpr (sizeof(XT) == 4 && PAIRS) {
       const float2 x2 = p < words ? reinterpret_cast<const float2*>(slot)[i * words + p]
                                   : make_float2(0.f, 0.f);
@@ -208,185 +257,95 @@ __device__ __forceinline__ void load_row(const unsigned char* slot, int i, int w
   }
 }
 
-// Add the cnt rows of one ring slot (x rows q0, q0 + 1, ... of the block's
-// tile; row q is root q / f, fanout index q % f) into the f32 accumulators
-// of this thread's columns, in the order j = 0, 1, ...; after j = f - 1
-// store the root's mean, divided by f and rounded to bf16, into the mean
-// tile. PAIRS (even d): a thread owns column pairs tid + 512*u of each row;
-// otherwise single columns. The rows of one root inside the slot are a run
-// with no control flow: four rows' loads are issued before their adds.
+// Add the rows of one ring slot (rows q0 .. q0 + cnt - 1 of the tile; row q
+// is root q / f, fanout index q % f) that belong to this thread's group's
+// roots (r = grp, grp + n_groups, ...) into the f32 accumulators of its
+// columns, in the order j = 0, 1, ...; after j = f - 1 store the root's
+// mean, divided by f and rounded to bf16, into the mean tile (row stride ms
+// words). A group has at most one root open at a slot's end (the last root
+// of the slot), whose sum it carries into the next slot. PAIRS (even d): a
+// thread owns column pairs p0 + gsize*u of each row; otherwise single
+// columns. A root's rows in the slot are a run with no control flow: four
+// rows' loads are issued before their adds.
 template <int NU, bool PAIRS, typename XT>
 __device__ __forceinline__ void reduce_slot(const unsigned char* slot, int cnt, int q0, int f,
-                                            int d, int k16, __nv_bfloat16* mean, float* acc,
-                                            int tid) {
+                                            int d, int ms, uint32_t* mean32, float* acc, int p0,
+                                            int gsize, int grp, int n_groups) {
   constexpr int kE = PAIRS ? 2 * NU : NU;  // columns per thread
   const int words = PAIRS ? d / 2 : d;
+  const int q1 = q0 + cnt;
   int r = q0 / f;
-  int j = q0 - r * f;
-  int i = 0;
+  if (n_groups > 1) r += (grp - r % n_groups + n_groups) % n_groups;  // the group's first root
 #pragma unroll 1
-  while (i < cnt) {
-    const int run = min(cnt - i, f - j);  // rows of root r in this slot
-    if (j == 0) {
+  for (; r * f < q1; r += n_groups) {
+    const int lo = max(q0, r * f), hi = min(q1, r * f + f);
+    if (lo == r * f) {
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] = 0.f;
     }
-    int k = 0;
+    int i = lo - q0;
+    const int iend = hi - q0;
 #pragma unroll 1
-    for (; k + 4 <= run; k += 4) {
+    for (; i + 4 <= iend; i += 4) {
       float v0[kE], v1[kE], v2[kE], v3[kE];
-      load_row<NU, PAIRS, XT>(slot, i + k, words, tid, v0);
-      load_row<NU, PAIRS, XT>(slot, i + k + 1, words, tid, v1);
-      load_row<NU, PAIRS, XT>(slot, i + k + 2, words, tid, v2);
-      load_row<NU, PAIRS, XT>(slot, i + k + 3, words, tid, v3);
+      load_row<NU, PAIRS, XT>(slot, i, words, p0, gsize, v0);
+      load_row<NU, PAIRS, XT>(slot, i + 1, words, p0, gsize, v1);
+      load_row<NU, PAIRS, XT>(slot, i + 2, words, p0, gsize, v2);
+      load_row<NU, PAIRS, XT>(slot, i + 3, words, p0, gsize, v3);
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] = (((acc[e] + v0[e]) + v1[e]) + v2[e]) + v3[e];
     }
 #pragma unroll 1
-    for (; k < run; ++k) {
+    for (; i < iend; ++i) {
       float v0[kE];
-      load_row<NU, PAIRS, XT>(slot, i + k, words, tid, v0);
+      load_row<NU, PAIRS, XT>(slot, i, words, p0, gsize, v0);
 #pragma unroll
       for (int e = 0; e < kE; ++e) acc[e] += v0[e];
     }
-    i += run;
-    j += run;
-    if (j == f) {
+    if (hi == r * f + f) {
       const float fd = (float)f;
 #pragma unroll
       for (int u = 0; u < NU; ++u) {
-        const int p = tid + u * kThreads;
+        const int p = p0 + u * gsize;
         if (p < words) {
           if constexpr (PAIRS) {
-            reinterpret_cast<uint32_t*>(mean + r * k16)[p] =
-                pack_bf16x2(acc[2 * u] / fd, acc[2 * u + 1] / fd);
+            mean32[r * ms + p] = pack_bf16x2(acc[2 * u] / fd, acc[2 * u + 1] / fd);
           } else {
-            mean[r * k16 + p] = __float2bfloat16(acc[u] / fd);
+            reinterpret_cast<__nv_bfloat16*>(mean32)[r * 2 * ms + p] = __float2bfloat16(acc[u] / fd);
           }
         }
       }
-      j = 0;
-      ++r;
     }
   }
 }
 
-// MT: m-tiles of 16 output columns per warp (o_pad = 128 * MT, or less when
-// MT = 1). NU: reduction words per thread (words <= 512 * NU). XT: x's
-// element type (bf16 or f32). x streams with one bulk copy per stage when
-// `word` is 16, else with cp.async words of `word` bytes.
-template <int MT, int NU, bool PAIRS, typename XT>
-__global__ void __launch_bounds__(kThreads, 1)
-mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ out, int64_t b, int f, int d, int o_pad,
-                         int word, int g_rows, int n_wbufs) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const bool bulk = word == 16;
+// One tile's product out[root0 + n, :] = mean[n, :] @ W for n < roots, on
+// the tensor cores (see 4. above). IPW: work items per warp. Runs W's ring
+// passes when W is not resident, and then (refill) issues the ring's first
+// chunks for the block's next tile.
+template <int IPW>
+__device__ __forceinline__ void project_tile(const uint32_t* mean32, unsigned char* wbufs,
+                                             float* xbuf, const __nv_bfloat16* w,
+                                             __nv_bfloat16* out, int64_t root0, int roots,
+                                             int tb, int d, int o_pad, int ms, int n_wbufs,
+                                             int ksplit, bool refill) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k16 = (d + 15) & ~15;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_mt = o_pad / 16, n_nt = (tb + 7) / 8;
+  const int n_items = n_mt * n_nt * ksplit;
+  const int n_ks = ((d + 15) & ~15) / 16;
   const int nc = (d + kKC - 1) / kKC;
-  const int n_res = min(nc, n_wbufs);  // W chunks that have a buffer from the start
   const int row_bytes = o_pad * 2;
   const int swz = min(7, o_pad / 8 - 1);
-  constexpr int kXB = sizeof(XT);
-  const int slot_bytes = (g_rows * d * kXB + 15) & ~15;
-  const uint32_t full0 = smem_u32(smem);  // bulk: slot i's copy completes on full0 + 8*i
-  __nv_bfloat16* mean = reinterpret_cast<__nv_bfloat16*>(smem + kBarBytes);  // (kTB, k16)
-  float* xbuf = reinterpret_cast<float*>(smem + kBarBytes + kTB * k16 * 2);  // (o_pad/16, 32, 4)
-  unsigned char* ring = smem + kBarBytes + kTB * k16 * 2 + o_pad * 32;
-  unsigned char* wbufs = ring + (size_t)kStages * slot_bytes;
-
-  const int64_t b0 = (int64_t)blockIdx.x * kTB;
-  const int rows = (int)((b - b0) < kTB ? (b - b0) : kTB);
-  // zero the mean tile (K padding, roots past a ragged end)
-  for (int i = tid; i < kTB * k16 / 2; i += kThreads) reinterpret_cast<uint32_t*>(mean)[i] = 0u;
-  if (bulk && tid == 0) {
-    for (int i = 0; i < kStages; ++i) mbar_init(full0 + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // 1-2. x stream: stage s holds x rows [s*G, s*G + G) of this block's tile;
-  // W chunk s rides in the copy group of iteration s, behind the x stages.
-  // The warps that own no reduction column issue W's copies, so those run
-  // beside the reduction; when every warp reduces, all of them issue W.
-  const int words = PAIRS ? d / 2 : d;
-  const int red_warps = NU > 1 ? kWarps : min(kWarps, (words + 31) / 32);
-  const int per_row = o_pad / 8;
-  const int w_threads = ((kThreads - red_warps * 32) / per_row) * per_row;
-  const int w_first = w_threads > 0 ? red_warps * 32 : 0;  // first W-issuing thread
-  const int w_count = w_threads > 0 ? w_threads : kThreads;
-  const bool w_issuer = tid >= w_first && tid < w_first + w_count;
-  const int n_xrows = rows * f;
-  const int n_stages = (n_xrows + g_rows - 1) / g_rows;
-  const unsigned char* tile = reinterpret_cast<const unsigned char*>(x + b0 * f * d);
-  auto issue_stage = [&](int s) {
-    unsigned char* slot = ring + (size_t)(s % kStages) * slot_bytes;
-    const int bytes = min(g_rows, n_xrows - s * g_rows) * d * kXB;
-    const unsigned char* src = tile + (int64_t)s * g_rows * d * kXB;
-    if (bulk) {
-      if (tid == 0) {
-        const uint32_t bar = full0 + 8 * (s % kStages);
-        const int bytes16 = bytes & ~15;
-        mbar_expect_tx(bar, (uint32_t)bytes16);
-        if (bytes16 > 0) bulk_copy(smem_u32(slot), src, (uint32_t)bytes16, bar);
-        for (int e = bytes16 / 2; e < bytes / 2; ++e)  // a ragged last block's tail
-          reinterpret_cast<__nv_bfloat16*>(slot)[e] =
-              reinterpret_cast<const __nv_bfloat16*>(src)[e];
-      }
-    } else if (word == 8) {
-      copy_words<8>(slot, src, bytes, tid);
-    } else {
-      copy_words<4>(slot, src, bytes, tid);
-    }
-  };
-#pragma unroll 1
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_stages) issue_stage(s);
-    cp_async_commit();
-  }
-
-  // 3. fanout mean in f32 registers, rounded once to bf16 into the tile
-  float acc[PAIRS ? 2 * NU : NU];
-#pragma unroll 1
-  for (int s = 0; s < n_stages; ++s) {
-    if (bulk) {
-      mbar_wait(full0 + 8 * (s % kStages), (uint32_t)((s / kStages) & 1));
-    } else {
-      cp_async_wait_ring();
-    }
-    __syncthreads();
-    if (s + kStages - 1 < n_stages) issue_stage(s + kStages - 1);
-    if (s < n_res && w_issuer) issue_w_chunk(w, wbufs, s, s, d, o_pad, tid - w_first, w_count);
-    cp_async_commit();
-    if (warp < red_warps)
-      reduce_slot<NU, PAIRS, XT>(ring + (size_t)(s % kStages) * slot_bytes,
-                                 min(g_rows, n_xrows - s * g_rows), s * g_rows, f, d, k16, mean,
-                                 acc, tid);
-  }
-#pragma unroll 1
-  for (int c = n_stages; c < n_res; ++c) issue_w_chunk(w, wbufs, c, c, d, o_pad, tid, kThreads);
-  cp_async_wait_all();
-  __syncthreads();
-
-  // 4. out^T = W^T mean^T on the tensor cores. Warp w takes m-tiles
-  // w % 8 + 8*mi and the chunks of parity w / 8; a pass covers the W chunks
-  // that are resident (one pass on the main path); a chunk's four k-steps
-  // load their fragments before their products issue
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 7, kh = warp >> 3;
-  const int n_mt = o_pad / 16;
-  const int n_ks = k16 / 16;
-  const uint32_t* mean32 = reinterpret_cast<const uint32_t*>(mean);
   const int lrow = (lane & 7) + ((lane >> 4) << 3);  // ldmatrix row of this lane
   const int lcol = ((lane >> 3) & 1) * 8;
-  float cacc[MT][2][4];
+  float cacc[IPW][2][4];
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
+  for (int ii = 0; ii < IPW; ++ii)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) cacc[mi][h][e] = 0.f;
+      for (int e = 0; e < 4; ++e) cacc[ii][h][e] = 0.f;
 #pragma unroll 1
   for (int c0 = 0; c0 < nc; c0 += n_wbufs) {
     const int c1 = min(nc, c0 + n_wbufs);
@@ -395,13 +354,18 @@ mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restri
       __syncthreads();
     }
 #pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const int mt = wm + mi * 8;
-      if (mt < n_mt) {
+    for (int ii = 0; ii < IPW; ++ii) {
+      const int item = warp + kWarps * ii;
+      if (item < n_items) {
+        const int kh = item % ksplit, rest = item / ksplit;
+        const int mt = rest % n_mt, nt = rest / n_mt;
+        const int col = mt * 2 + (lcol >> 3);  // this lane's 16-byte word of a W row
+        const int nroot = nt * 8 + g;          // this lane's root of the B fragment
+        const bool live = nroot < tb;
+        const uint32_t* mrow = mean32 + (live ? nroot : 0) * ms;
 #pragma unroll 1
-        for (int c = c0 + kh; c < c1; c += 2) {
+        for (int c = c0 + kh; c < c1; c += ksplit) {
           const unsigned char* wb = wbufs + (size_t)(c - c0) * kKC * row_bytes;
-          const int col = mt * 2 + (lcol >> 3);  // this lane's 16-byte word of a W row
           const int ks0 = c * kKS;
           uint32_t a[kKS][4], bl[kKS], bh[kKS];
 #pragma unroll
@@ -411,13 +375,13 @@ mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restri
               if (c * kKC + krow >= d) krow = d - 1 - c * kKC;  // pad rows: the mean is 0 there
               ldmatrix_x4_trans(
                   smem_u32(wb + (size_t)krow * row_bytes + w_word(krow, col, swz) * 16), a[q]);
-              bl[q] = g < kTB ? mean32[g * (k16 / 2) + (ks0 + q) * 8 + t] : 0u;
-              bh[q] = g < kTB ? mean32[g * (k16 / 2) + (ks0 + q) * 8 + 4 + t] : 0u;
+              bl[q] = live ? mrow[(ks0 + q) * 8 + t] : 0u;
+              bh[q] = live ? mrow[(ks0 + q) * 8 + 4 + t] : 0u;
             }
           }
 #pragma unroll
           for (int q = 0; q < kKS; ++q)
-            if (ks0 + q < n_ks) mma_bf16(cacc[mi][q & 1], a[q], bl[q], bh[q]);
+            if (ks0 + q < n_ks) mma_bf16(cacc[ii][q & 1], a[q], bl[q], bh[q]);
         }
       }
     }
@@ -429,36 +393,212 @@ mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restri
       cp_async_commit();
     }
   }
-  // the odd-chunk warps hand their sums to the even-chunk warps, which add
-  // them and round once to bf16
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-    const int mt = wm + mi * 8;
-    if (kh == 1 && mt < n_mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xbuf[(mt * 32 + lane) * 4 + e] = cacc[mi][0][e] + cacc[mi][1][e];
+  if (nc > n_wbufs && refill) {  // W ring: the next tile's first chunks
+    __syncthreads();
+#pragma unroll 1
+    for (int c = 0; c < n_wbufs; ++c) issue_w_chunk(w, wbufs, c, c, d, o_pad, tid, kThreads);
+    cp_async_commit();
   }
-  __syncthreads();
+  // the second half of K hands its sums to the first, which adds them and
+  // rounds once to bf16
+  if (ksplit == 2) {
 #pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-    const int mt = wm + mi * 8;
-    if (kh == 0 && mt < n_mt) {
+    for (int ii = 0; ii < IPW; ++ii) {
+      const int item = warp + kWarps * ii;
+      if (item < n_items && item % 2 == 1)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xbuf[((item / 2) * 32 + lane) * 4 + e] = cacc[ii][0][e] + cacc[ii][1][e];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int ii = 0; ii < IPW; ++ii) {
+    const int item = warp + kWarps * ii;
+    if (item < n_items && item % ksplit == 0) {
+      const int rest = item / ksplit;
+      const int mt = rest % n_mt, nt = rest / n_mt;
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int root = 2 * t + e;
+          const int root = nt * 8 + 2 * t + e;
           const int k = 2 * h + e;
-          if (root < rows)
-            out[(b0 + root) * o_pad + mt * 16 + g + 8 * h] = __float2bfloat16(
-                (cacc[mi][0][k] + cacc[mi][1][k]) + xbuf[(mt * 32 + lane) * 4 + k]);
+          if (root < roots) {
+            float v = cacc[ii][0][k] + cacc[ii][1][k];
+            if (ksplit == 2) v += xbuf[(rest * 32 + lane) * 4 + k];
+            out[(root0 + root) * o_pad + mt * 16 + g + 8 * h] = __float2bfloat16(v);
+          }
         }
     }
   }
 }
 
+// IPW: product items per warp. NU: reduction words per thread (words <=
+// 32 * group warps * NU). XT: x's element type (bf16 or f32). x streams with
+// one bulk copy per stage when `word` is 16, else with cp.async words of
+// `word` bytes.
+template <int IPW, int NU, bool PAIRS, typename XT>
+__global__ void __launch_bounds__(kThreads, 1)
+mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                         __nv_bfloat16* __restrict__ out, int64_t b, int f, int d, int o_pad,
+                         int word, int g_rows, int n_wbufs, int tb, int ksplit) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kXB = sizeof(XT);
+  const Layout lay(d, o_pad, kXB, g_rows, n_wbufs, tb, ksplit);
+  const bool bulk = word == 16;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int nc = (d + kKC - 1) / kKC;
+  const int n_res = min(nc, n_wbufs);  // W chunks that have a buffer from the start
+  const bool resident = n_wbufs >= nc;
+  const int64_t xrow = (int64_t)d * kXB;
+  const uint32_t full0 = smem_u32(smem);  // bulk: slot i's copy completes on full0 + 8*i
+  uint32_t* mean32 = reinterpret_cast<uint32_t*>(smem + kBarBytes);  // (tb, ms) words
+  float* xbuf = reinterpret_cast<float*>(smem + kBarBytes + (size_t)tb * lay.ms * 4);
+  unsigned char* ring = smem + lay.ring_off;
+  unsigned char* wbufs = ring + (size_t)kStages * lay.slot_bytes;
+
+  // the block's roots: an even share of the 4-root units, [r_begin, r_end),
+  // walked in tiles of tb roots (tile k from r_begin + k * tb); a tile of
+  // `roots` roots streams in ceil(roots * f / g_rows) stages
+  const int units = (int)((b + 3) / 4), bx = blockIdx.x;
+  const int per = units / gridDim.x, extra = units - per * gridDim.x;
+  const int64_t r_begin = 4 * (int64_t)(bx * per + min(bx, extra));
+  const int64_t r_cut = r_begin + 4 * (per + (bx < extra ? 1 : 0));
+  const int64_t r_end = r_cut < b ? r_cut : b;
+  const int my_tiles = ((int)(r_end - r_begin) + tb - 1) / tb;
+  auto roots_of = [&](int64_t root0) { return (int)(r_end - root0 < tb ? r_end - root0 : tb); };
+  auto stages_of = [&](int roots) { return (roots * f + g_rows - 1) / g_rows; };
+
+  // zero the mean tile once (K padding; the roots past a ragged end are
+  // never stored)
+  for (int i = tid; i < tb * lay.ms; i += kThreads) mean32[i] = 0u;
+  if (bulk && tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(full0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the reduction groups; the warps that own no reduction column issue W's
+  // copies, so those run beside the reduction (when every warp reduces, all
+  // of them issue W)
+  const int words = PAIRS ? d / 2 : d;
+  int gw = kWarps;  // warps per group
+  if (NU == 1)
+    while (gw > 1 && (gw / 2) * 32 >= words) gw /= 2;
+  const int grp = warp / gw, n_groups = kWarps / gw;
+  const int gsize = gw * 32, p0 = tid - grp * gsize;
+  const bool reducer = (p0 & ~31) < words;
+  const int red_warps = gw < kWarps || NU > 1 ? kWarps : min(kWarps, (words + 31) / 32);
+  const int per_row = o_pad / 8;
+  const int w_threads = ((kThreads - red_warps * 32) / per_row) * per_row;
+  const int w_first = w_threads > 0 ? red_warps * 32 : 0;  // first W-issuing thread
+  const int w_count = w_threads > 0 ? w_threads : kThreads;
+  const bool w_issuer = tid >= w_first && tid < w_first + w_count;
+
+  // 2. the x stream, one ring across the block's tiles: the producer's
+  // cursor (tile p_k, its stage p_ls, ring slot p_slot) runs kStages - 1
+  // ahead of the consumer's
+  int p_k = 0, p_ls = 0, p_slot = 0;
+  int64_t p_tile = r_begin;  // the tile's first root
+  int p_roots = roots_of(p_tile), p_stages = stages_of(p_roots);
+  auto issue_next = [&]() {
+    if (p_k < my_tiles) {
+      unsigned char* slot = ring + (size_t)p_slot * lay.slot_bytes;
+      const int bytes = (int)(min(g_rows, p_roots * f - p_ls * g_rows) * xrow);
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(x) +
+                                 (p_tile * f + (int64_t)p_ls * g_rows) * xrow;
+      if (bulk) {
+        if (tid == 0) {
+          const uint32_t bar = full0 + 8 * (uint32_t)p_slot;
+          const int bytes16 = bytes & ~15;
+          mbar_expect_tx(bar, (uint32_t)bytes16);
+          if (bytes16 > 0) bulk_copy(smem_u32(slot), src, (uint32_t)bytes16, bar);
+          for (int e = bytes16 / 2; e < bytes / 2; ++e)  // the ragged end of x
+            reinterpret_cast<__nv_bfloat16*>(slot)[e] =
+                reinterpret_cast<const __nv_bfloat16*>(src)[e];
+        }
+      } else if (word == 8) {
+        copy_words<8>(slot, src, bytes, tid);
+      } else {
+        copy_words<4>(slot, src, bytes, tid);
+      }
+      if (++p_ls == p_stages) {
+        p_ls = 0;
+        if (++p_k < my_tiles) {
+          p_tile += tb;
+          p_roots = roots_of(p_tile);
+          p_stages = stages_of(p_roots);
+        }
+      }
+      p_slot = p_slot + 1 == kStages ? 0 : p_slot + 1;
+    }
+  };
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    issue_next();
+    cp_async_commit();
+  }
+
+  // 1 and 3: W's chunks ride in the copy groups of the first tile's stages;
+  // the fanout mean in f32 registers, rounded once to bf16 into the tile
+  float acc[PAIRS ? 2 * NU : NU];
+  int c_k = 0, c_ls = 0, c_slot = 0, sg = 0;
+  uint32_t c_phase = 0;
+  int64_t c_tile = r_begin;
+  int c_roots = roots_of(c_tile), c_stages = stages_of(c_roots);
+  // W chunks issued per stage: all of them by the first tile's last stage but one
+  const int w_per = (n_res + max(1, c_stages - 1) - 1) / max(1, c_stages - 1);
+#pragma unroll 1
+  while (c_k < my_tiles) {
+    if (bulk) {
+      mbar_wait(full0 + 8 * (uint32_t)c_slot, c_phase);
+    } else {
+      cp_async_wait_ring();
+    }
+    __syncthreads();
+    if (c_k == 0 && w_issuer)
+#pragma unroll 1
+      for (int c = sg * w_per; c < min(n_res, (sg + 1) * w_per); ++c)
+        issue_w_chunk(w, wbufs, c, c, d, o_pad, tid - w_first, w_count);
+    issue_next();
+    cp_async_commit();
+    if (reducer)
+      reduce_slot<NU, PAIRS, XT>(ring + (size_t)c_slot * lay.slot_bytes,
+                                 min(g_rows, c_roots * f - c_ls * g_rows), c_ls * g_rows, f, d,
+                                 lay.ms, mean32, acc, p0, gsize, grp, n_groups);
+    if (c_ls == c_stages - 1) {  // the tile's mean is complete: 4. its product
+      if (c_k == 0) {
+#pragma unroll 1
+        for (int c = (sg + 1) * w_per; c < n_res; ++c)
+          issue_w_chunk(w, wbufs, c, c, d, o_pad, tid, kThreads);
+        cp_async_commit();
+      }
+      if (c_k == 0 || !resident) cp_async_wait_all();
+      __syncthreads();
+      project_tile<IPW>(mean32, wbufs, xbuf, w, out, c_tile, c_roots, tb, d, o_pad, lay.ms,
+                        n_wbufs, ksplit, c_k + 1 < my_tiles);
+      __syncthreads();
+      c_ls = 0;
+      if (++c_k < my_tiles) {
+        c_tile += tb;
+        c_roots = roots_of(c_tile);
+        c_stages = stages_of(c_roots);
+      }
+    } else {
+      ++c_ls;
+    }
+    if (++c_slot == kStages) {
+      c_slot = 0;
+      c_phase ^= 1u;
+    }
+    ++sg;
+  }
+}
+
 // ---- f32 path ------------------------------------------------------------
 
+constexpr int kTB = 4;        // roots per block
 constexpr int kF32Warps = 8;  // warps per block
 constexpr int kNO = 4;        // output columns per lane per pass (32 * kNO per pass)
 
@@ -544,25 +684,27 @@ int set_smem(K kernel, size_t smem, size_t* done) {
   return 0;
 }
 
-template <int MT, int NU, bool PAIRS, typename XT>
+template <int IPW, int NU, bool PAIRS, typename XT>
 int launch_bf16(const void* x, const void* w, void* out, int64_t b, int f, int d, int o_pad,
-                int word, int g_rows, int n_wbufs, size_t smem, cudaStream_t s) {
+                int word, int g_rows, int n_wbufs, int tb, int grid, int ksplit, size_t smem,
+                cudaStream_t s) {
   static size_t done = 0;
-  if (int e = set_smem(mean_project_bf16_kernel<MT, NU, PAIRS, XT>, smem, &done)) return e;
-  const unsigned blocks = (unsigned)((b + kTB - 1) / kTB);
-  mean_project_bf16_kernel<MT, NU, PAIRS, XT><<<blocks, kThreads, smem, s>>>(
+  if (int e = set_smem(mean_project_bf16_kernel<IPW, NU, PAIRS, XT>, smem, &done)) return e;
+  mean_project_bf16_kernel<IPW, NU, PAIRS, XT><<<(unsigned)grid, kThreads, smem, s>>>(
       (const XT*)x, (const __nv_bfloat16*)w, (__nv_bfloat16*)out, b, f, d, o_pad, word,
-      g_rows, n_wbufs);
+      g_rows, n_wbufs, tb, ksplit);
   return (int)cudaGetLastError();
 }
 
-template <int MT, typename XT>
-int launch_bf16_mt(const void* x, const void* w, void* out, int64_t b, int f, int d, int o_pad,
-                   int word, int g_rows, int n_wbufs, size_t smem, cudaStream_t s) {
+template <int IPW, typename XT>
+int launch_bf16_nu(const void* x, const void* w, void* out, int64_t b, int f, int d, int o_pad,
+                   int word, int g_rows, int n_wbufs, int tb, int grid, int ksplit,
+                   size_t smem, cudaStream_t s) {
   const bool pairs = d % 2 == 0;
   const int words = pairs ? d / 2 : d;
-#define TSG_LAUNCH(NU, PAIRS) \
-  launch_bf16<MT, NU, PAIRS, XT>(x, w, out, b, f, d, o_pad, word, g_rows, n_wbufs, smem, s)
+#define TSG_LAUNCH(NU, PAIRS)                                                               \
+  launch_bf16<IPW, NU, PAIRS, XT>(x, w, out, b, f, d, o_pad, word, g_rows, n_wbufs, tb, grid, \
+                                  ksplit, smem, s)
   if (pairs) return words <= kThreads ? TSG_LAUNCH(1, true) : TSG_LAUNCH(2, true);
   if (words <= kThreads) return TSG_LAUNCH(1, false);
   if (words <= 2 * kThreads) return TSG_LAUNCH(2, false);
@@ -574,27 +716,41 @@ int launch_bf16_mt(const void* x, const void* w, void* out, int64_t b, int f, in
 
 // bf16: x (b, f, d) of x_bytes-byte elements (2: bf16, 4: f32), w (d, o_pad)
 // bf16 with o_pad a power of two in [16, 1024] and a 16-byte-aligned base,
-// out (b, o_pad) bf16. word_bytes (16, 8 or 4) divides x's base address and
-// kTB*f*d*x_bytes; 16 divides g_rows*d*x_bytes. The caller sizes smem_bytes
-// as 128 + 4*k16*2 + 32*o_pad + 4*ceil16(g_rows*d*x_bytes) plus
-// W's rows, d*o_pad*2 when all are resident (n_wbufs = ceil(d/64)), else
-// n_wbufs*64*o_pad*2, within 232,448 (k16 = d rounded up to 16), with
-// d <= 2048.
+// out (b, o_pad) bf16, d <= 2048. `grid` persistent blocks (at most one per
+// 4 roots) each take an even share of the 4-root units and walk it in tiles
+// of tb roots (4, 8, 16 or 32); ksplit 2 splits K in two
+// halves (at most 8 pairs of 16 output columns and 8 roots), else 1;
+// (o_pad / 16) * ceil(tb / 8) * ksplit <= 128. word_bytes (16, 8 or 4)
+// divides x's base address and 4*f*d*x_bytes; 16 divides g_rows*d*x_bytes.
+// n_wbufs >= ceil(d / 64) keeps W
+// resident, fewer form a ring of W chunks. smem_bytes must hold the layout
+// (Layout above, as the plan computes it), within 232,448.
 extern "C" int tsg_mean_project_bf16(const void* x, const void* w, void* out, long long b,
                                      int f, int d, int o_pad, int x_bytes, int word_bytes,
-                                     int g_rows, int n_wbufs, long long smem_bytes, void* stream) {
+                                     int g_rows, int n_wbufs, int tb, int grid, int ksplit,
+                                     long long smem_bytes, void* stream) {
   if (word_bytes != 16 && word_bytes != 8 && word_bytes != 4) return (int)cudaErrorInvalidValue;
   if (x_bytes != 2 && x_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (tb != 4 && tb != 8 && tb != 16 && tb != 32) return (int)cudaErrorInvalidValue;
+  if ((ksplit != 1 && ksplit != 2) || n_wbufs < 1 || g_rows < 1 || d < 1 || d > 2048 || f < 1)
+    return (int)cudaErrorInvalidValue;
+  if (o_pad < 16 || o_pad > 1024 || (o_pad & (o_pad - 1))) return (int)cudaErrorInvalidValue;
+  if (grid < 1 || grid > (b + 3) / 4) return (int)cudaErrorInvalidValue;
+  const Layout lay(d, o_pad, x_bytes, g_rows, n_wbufs, tb, ksplit);
+  if (lay.total > (size_t)smem_bytes || smem_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int items = (o_pad / 16) * ((tb + 7) / 8) * ksplit;
   cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = (size_t)smem_bytes;
-#define TSG_LAUNCH_X(MT, XT) \
-  launch_bf16_mt<MT, XT>(x, w, out, b, f, d, o_pad, word_bytes, g_rows, n_wbufs, smem, s)
-#define TSG_LAUNCH(MT) \
-  (x_bytes == 4 ? TSG_LAUNCH_X(MT, float) : TSG_LAUNCH_X(MT, __nv_bfloat16))
-  if (o_pad <= 128) return TSG_LAUNCH(1);
-  if (o_pad <= 256) return TSG_LAUNCH(2);
-  if (o_pad <= 512) return TSG_LAUNCH(4);
-  return TSG_LAUNCH(8);
+#define TSG_LAUNCH_X(IPW, XT)                                                                   \
+  launch_bf16_nu<IPW, XT>(x, w, out, b, f, d, o_pad, word_bytes, g_rows, n_wbufs, tb, grid, \
+                          ksplit, smem, s)
+#define TSG_LAUNCH(IPW) \
+  (x_bytes == 4 ? TSG_LAUNCH_X(IPW, float) : TSG_LAUNCH_X(IPW, __nv_bfloat16))
+  if (items <= kWarps) return TSG_LAUNCH(1);
+  if (items <= 2 * kWarps) return TSG_LAUNCH(2);
+  if (items <= 4 * kWarps) return TSG_LAUNCH(4);
+  if (items <= 8 * kWarps) return TSG_LAUNCH(8);
+  return (int)cudaErrorInvalidValue;
 #undef TSG_LAUNCH
 #undef TSG_LAUNCH_X
 }

@@ -61,20 +61,24 @@ def gather_plan(row_bytes: int, table_mod16: int, out_mod16: int) -> dict:
     """How ``csrc/gather.cu`` moves rows of ``row_bytes`` between a table and
     an output whose base addresses are ``table_mod16`` and ``out_mod16`` mod 16.
 
-    ``"realign"`` for rows wider than 128 bytes whose width and bases are
-    multiples of 4 (except 16-byte-aligned rows of at most 512 bytes, which
-    the words form already moves as one 16-byte word per lane): one warp per
-    row, aligned 16-byte loads realigned to the destination by shuffles,
+    ``"words"`` for rows whose width and bases are 16-byte multiples, up to
+    2,048 bytes (one 16-byte word per lane, or up to 4 issued before the
+    lane's first store), and for rows of at most 128 bytes or of odd width:
+    the widest word of 16, 4, 2 or 1 bytes that divides the row and both
+    bases, ``lanes_per_row`` lanes (a power of two) per row, so narrow rows
+    share a warp. ``"realign"`` for the other rows wider than 128 bytes whose
+    width and bases are multiples of 2: aligned 16-byte loads realigned to
+    the destination by shuffles, ``lanes_per_row`` lanes per row (the
+    smallest power of two, at least 8, that covers the most 16-byte words a
+    row can span; at most 32, so narrower rows share a warp),
     ``words_per_lane`` of them per lane (at most 4; wider rows go in chunks).
-    ``"words"`` otherwise: the widest word of 16, 4, 2 or 1 bytes that divides
-    the row and both bases, ``lanes_per_row`` lanes (a power of two) per row,
-    so narrow rows share a warp.
     """
     word = _word_bytes(row_bytes, table_mod16, out_mod16)
-    if row_bytes > 128 and word >= 4 and not (word == 16 and row_bytes <= 512):
-        span = (12 + row_bytes + 15) // 16  # aligned 16-byte words a row can touch
-        return {"form": "realign", "word": 16, "lanes_per_row": 32,
-                "words_per_lane": min(-(-span // 32), 4)}
+    if row_bytes > 128 and word in (2, 4) or (word == 16 and row_bytes > 2048):
+        span = (16 - min(word, 4) + row_bytes + 15) // 16  # aligned words a row can touch
+        lanes = min(32, max(8, 1 << (span - 1).bit_length()))
+        return {"form": "realign", "word": 16, "lanes_per_row": lanes,
+                "words_per_lane": min(-(-span // lanes), 4)}
     words = row_bytes // word
     return {"form": "words", "word": word,
             "lanes_per_row": min(32, 1 << max(words - 1, 0).bit_length()),

@@ -12,11 +12,11 @@ once to ``W.dtype`` (as ``jnp.mean`` of a bf16 tile returns it; for f32 rows,
 as the JAX package's ``fc_neigh(jnp.mean(x))`` casts the mean), the product
 accumulated in f32 and rounded once. For f32 both roundings are no-ops.
 
-The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16 W: x
-streamed into shared memory with bulk asynchronous copies, or ``cp.async``
-words when it is not 16-byte aligned, and the product on the tensor cores;
-f32: exact f32 on the SIMT units); on a CPU tensor it runs
-``mean_project_reference``.
+The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16 W:
+persistent blocks that stage W once and walk tiles of roots, x streamed into
+shared memory with bulk asynchronous copies, or ``cp.async`` words when it
+is not 16-byte aligned, and the product on the tensor cores; f32: exact f32
+on the SIMT units); on a CPU tensor it runs ``mean_project_reference``.
 The backward is the reference's (computed outside Pallas there too), two
 plain products with ``meanx`` recomputed in W's dtype, each only when its
 input needs a gradient, ``dx`` divided in x's dtype::
@@ -28,6 +28,7 @@ input needs a gradient, ``dx`` divided in x's dtype::
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -41,52 +42,102 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
+    "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
     "tsg_mean_project_f32": (_P, _P, _P, _LL, _I, _I, _I, _P),
 }
 _MAX_SMEM_BYTES = 232_448  # per-block shared memory on Hopper
 
 # the bf16 kernel's compile-time shape (csrc/mean_project.cu)
-_TB, _STAGES, _KC, _BAR_BYTES = 4, 4, 64, 128
+_WARPS, _STAGES, _KC, _BAR_BYTES = 16, 3, 64, 128
 _MAX_D, _MAX_O = 2048, 1024
-_STAGE_TARGET_BYTES, _MAX_STAGE_ROWS = 16384, 32
+_MAX_ITEMS = 8 * _WARPS  # product items: (16 output columns, 8 roots, half of K)
+# x slots, measured on the H100 (PERF.md): up to 32 KB with one tile a
+# block, where W stays resident beside slots of at least 16 KB; up to 48 KB
+# with several tiles a block, where W stays resident only beside slots of at
+# least 32 KB, else the ring's larger slots win. Beside a W ring, a slot of
+# 5/6 the size is taken when it leaves room for a buffer that saves a pass
+# over W (each pass waits for its chunks from L2)
+_ONE_TILE = dict(slot=32768, min_slot=16384)
+_TILES = dict(slot=49152, min_slot=32768)
 
 
 def _ceil(a: int, m: int) -> int:
     return -(-a // m) * m
 
 
-def bf16_plan(f: int, d: int, o: int, x_ptr: int, x_bytes: int = 2) -> dict:
-    """Launch shape of the bf16 kernel for ``x (B, f, d)`` of ``x_bytes``-byte
-    elements (2: bf16, 4: f32) at address ``x_ptr`` and a bf16 ``W (d, o)``:
-    the copy word for x (16 bytes, a bulk copy per stage, when it divides the
-    address and a block's tile of ``4·f·d·x_bytes`` bytes, else 8- or 4-byte
-    cp.async words), the x rows per ring stage (``16`` divides a stage's
-    bytes, at most 16 KB), W's columns padded to a power of two ``o_pad``,
-    the number of W chunk buffers that fit beside the ring, and the shared
-    memory. Raises for what the kernel does not take."""
+def _layout(f: int, d: int, o_pad: int, row: int, step: int, tb: int, slot: int,
+            min_slot: int) -> dict | None:
+    """The block's shared memory at ``tb`` roots a tile: W resident beside
+    an x ring of slots of up to ``slot`` bytes when they can hold
+    ``min_slot``, else a ring of W chunk buffers beside slots of ``slot``
+    bytes, or smaller ones where no W buffer would fit (a slot holds at most
+    a tile's rows); None when ``tb`` does not fit at all. Offsets and slots
+    are 128-byte multiples (``Layout`` in the source)."""
+    n_mt, n_nt = o_pad // 16, -(-tb // 8)
+    ksplit = 2 if n_mt * n_nt <= 8 else 1
+    if n_mt * n_nt * ksplit > _MAX_ITEMS:
+        return None
+    ms = _ceil(_ceil(d, 16) // 2, 32) + 4  # mean row stride, 32-bit words
+    fixed = _ceil(_BAR_BYTES + tb * ms * 4 + (n_mt * n_nt * 512 if ksplit == 2 else 0), 128)
+    n_chunks = -(-d // _KC)
+
+    def ring(slot_max):
+        g = min(max(0, slot_max) // row, _ceil(tb * f, step)) // step * step
+        g = max(g, step)
+        return g, _ceil(g * row, 128)
+
+    w_all = d * 2 * o_pad
+    g_rows, x_slot = ring(min(slot, (_MAX_SMEM_BYTES - fixed - w_all) // _STAGES))
+    if x_slot >= min_slot and fixed + _STAGES * x_slot + w_all <= _MAX_SMEM_BYTES:
+        return dict(tb=tb, ksplit=ksplit, g_rows=g_rows, n_wbufs=n_chunks, resident=True,
+                    smem=fixed + _STAGES * x_slot + w_all)
+
+    def w_ring(target):  # W in a ring of chunk buffers beside slots of `target` bytes
+        g, x = ring(target)
+        n_wbufs = min(n_chunks, (_MAX_SMEM_BYTES - fixed - _STAGES * x) // (_KC * 2 * o_pad))
+        return (-(-n_chunks // n_wbufs), -x, g, n_wbufs) if n_wbufs >= 1 else None
+
+    rings = [r for r in map(w_ring, (slot, slot * 5 // 6)) if r] or \
+        [r for r in map(w_ring, (slot // 2, slot // 4, 0)) if r][:1]
+    if not rings:
+        return None
+    _, neg_slot, g_rows, n_wbufs = min(rings)  # fewest passes over W, then the larger slot
+    w_bytes = w_all if n_wbufs == n_chunks else n_wbufs * _KC * 2 * o_pad
+    return dict(tb=tb, ksplit=ksplit, g_rows=g_rows, n_wbufs=n_wbufs,
+                resident=n_wbufs == n_chunks, smem=fixed + _STAGES * -neg_slot + w_bytes)
+
+
+def bf16_plan(b: int, f: int, d: int, o: int, x_ptr: int, x_bytes: int = 2,
+              n_sm: int = 132) -> dict:
+    """Launch shape of the bf16 kernel for ``x (b, f, d)`` of ``x_bytes``-byte
+    elements (2: bf16, 4: f32) at address ``x_ptr`` and a bf16 ``W (d, o)``
+    on a card of ``n_sm`` SMs: the persistent ``grid`` (``min(ceil(b / 4),
+    n_sm)`` blocks, each an even share of the 4-root units), the roots per
+    tile ``tb`` (4 while ``b`` fits one 4-root unit per SM, so a block owns
+    one tile, as on the main path; else 16, or 8 or 4 where 16 does not
+    fit), the copy word for x (16 bytes, a bulk copy per stage, when it
+    divides the address and a 4-root unit of ``4·f·d·x_bytes`` bytes, else
+    8- or 4-byte cp.async words), the x rows per ring stage (``16`` divides
+    a stage's bytes), W's columns padded to a power of two ``o_pad``,
+    whether W is resident or a ring of ``n_wbufs`` chunk buffers, the
+    product's K split and the shared memory. A pure function of its
+    arguments; raises for what the kernel does not take."""
     if d > _MAX_D or o > _MAX_O:
         raise ValueError(f"mean_project bf16 kernel takes D <= {_MAX_D} and O <= {_MAX_O}, "
                          f"got D={d}, O={o}")
     row = d * x_bytes
-    tile = _TB * f * row
-    word = next((w for w in (16, 8, 4) if x_ptr % w == 0 and tile % w == 0), None)
+    word = next((w for w in (16, 8, 4) if x_ptr % w == 0 and (4 * f * row) % w == 0), None)
     if word is None:
         raise ValueError("mean_project bf16 kernel needs x 4-byte aligned")
     step = 16 // math.gcd(row, 16)  # fewest rows whose bytes 16 divides
-    g_rows = max(step, min(_MAX_STAGE_ROWS, _STAGE_TARGET_BYTES // row) // step * step)
     o_pad = max(16, 1 << (o - 1).bit_length())
-    fixed = (_BAR_BYTES + _TB * _ceil(d, 16) * 2 + 32 * o_pad
-             + _STAGES * _ceil(g_rows * row, 16))
-    n_chunks = -(-d // _KC)
-    if fixed + d * 2 * o_pad <= _MAX_SMEM_BYTES:  # all of W resident
-        n_wbufs, w_bytes = n_chunks, d * 2 * o_pad
-    else:  # W chunks in a ring of buffers
-        n_wbufs = (_MAX_SMEM_BYTES - fixed) // (_KC * 2 * o_pad)
-        w_bytes = n_wbufs * _KC * 2 * o_pad
-    if n_wbufs < 1:
-        raise ValueError(f"mean_project bf16 kernel: D={d}, O={o} do not fit in shared memory")
-    return dict(word=word, g_rows=g_rows, o_pad=o_pad, n_wbufs=n_wbufs, smem=fixed + w_bytes)
+    units = -(-b // 4)
+    one_tile = units <= n_sm
+    for tb in (4,) if one_tile else (16, 8, 4):
+        lay = _layout(f, d, o_pad, row, step, tb, **(_ONE_TILE if one_tile else _TILES))
+        if lay is not None:
+            return dict(word=word, o_pad=o_pad, grid=max(1, min(units, n_sm)), **lay)
+    raise ValueError(f"mean_project bf16 kernel: D={d}, O={o} do not fit in shared memory")
 
 
 def f32_smem_bytes(d: int, o: int) -> int:
@@ -100,6 +151,11 @@ def mean_project_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     f32 product, rounded to ``w.dtype``."""
     meanx = fanout_sum_mean(x).to(w.dtype)
     return (meanx.float() @ w.float()).to(w.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -129,15 +185,15 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     if b == 0 or o == 0:
         return torch.empty((b, o), dtype=w.dtype, device=x.device)
-    plan = bf16_plan(f, d, o, x.data_ptr(), x.element_size())
+    plan = bf16_plan(b, f, d, o, x.data_ptr(), x.element_size(), _sm_count(x.device))
     o_pad = plan["o_pad"]
     if o_pad != o or w.data_ptr() % 16:
         # the kernel reads W rows of o_pad columns from a 16-byte-aligned base
         w = torch.nn.functional.pad(w, (0, o_pad - o))
     out = torch.empty((b, o_pad), dtype=w.dtype, device=x.device)
     launch(lib.tsg_mean_project_bf16, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o_pad,
-           x.element_size(), plan["word"], plan["g_rows"], plan["n_wbufs"], plan["smem"],
-           device=x.device)
+           x.element_size(), plan["word"], plan["g_rows"], plan["n_wbufs"], plan["tb"],
+           plan["grid"], plan["ksplit"], plan["smem"], device=x.device)
     LAUNCHES += 1
     return out if o_pad == o else out[:, :o].contiguous()
 

@@ -110,6 +110,13 @@ def sample_tree_packed(
     return levels
 
 
+def gather_levels(feats: torch.Tensor, levels: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Feature rows of every tree level in one ``row_gather`` of the
+    concatenated levels, split back into levels."""
+    rows = row_gather(feats, torch.cat([lvl.reshape(-1) for lvl in levels]))
+    return list(torch.split(rows, [lvl.numel() for lvl in levels]))
+
+
 class UniformNeighborSampler:
     """The reference's sampler object: binds the adjacency once; each call
     draws from ``generator`` (or takes the uniforms ``u``)."""
