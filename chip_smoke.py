@@ -23,11 +23,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    from f32 602-wide, f32 256-wide and bf16 602-wide tables), and both
    redesigned kernels where they once lost to their library call
    (``mean_project`` at 6,144 roots, on the preps' f32 rows at 512 and
-   12,800 roots, at O = 64 and with an f32 W; ``gather_rows`` on int8
+   12,800 roots, at O = 64 and with an f32 W at the main path's layers and
+   the f32 NCE step's 6,144 roots; ``gather_rows`` on int8
    602-byte rows, PPI-shaped 200-byte f32 rows and 1,024-byte f32 rows);
    then edge cases (every realignment shift of ``gather_rows``, 2- and
    4-byte, out-of-range ids, degree 0; the persistent ``mean_project``'s
-   ragged last tile, x 4 and 8 bytes off alignment and W ring) and the
+   ragged last tile, x 4 and 8 bytes off alignment and W ring; the f32-W
+   ``mean_project`` at ragged B, odd D, O = 41 and 100, x and W off
+   alignment, F = 40, and its mean bitwise; the owner-masked fanout mean
+   bitwise at roots with no owned id, owned -0.0 rows, ids at both ends of
+   the owned range and tables at every offset) and the
    packed sampler (``sample_tree_packed``) at full width, bitwise against
    ``sample_tree`` with the same uniforms and with its own launch counts;
 4. reference: one full-width forward (232,965 × 602 Reddit-shaped store,
@@ -41,7 +46,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    eval too); prints ms/step and
    edges/s (edges/step = B·(f1 + f1·f2) = 140,800), then profiles 5 more
    steps with torch.profiler: device kernel time by name, the device busy
-   share against the unprofiled ms/step, and kernel launches per step;
+   share against the unprofiled ms/step, and kernel launches per step; then
+   the same configuration in f32 (``TrainConfig``'s default
+   ``compute_dtype``, the f32-W ``mean_project`` twice a step) for 30 steps
+   with its launch counts held per step, ms/step, device ms/step and busy
+   share (the ``f32_main_path`` line);
 6. serving path: exact full-graph inference (``nn/full_graph.py``) on the
    card against the CPU on a 20,000-node full-width store and an SBM store
    with degree-0 nodes (f32 and bf16 tables, embeddings and logits); then,
@@ -551,12 +560,15 @@ def phase_kernels(torch, np, graph, levels, peaks):
             torch.testing.assert_close(a, b, rtol=tol, atol=tol * b.abs().max().item(),
                                        msg=lambda m, k=k: f"mean_project {dtype} {k}: {m}")
     check_mean_project_tiles(torch, mean_project, feats, gen)
+    check_mean_project_f32(torch, mean_project, gather_mean, feats, gen)
+    check_owned_edges(torch, gather_mean, gen)
     torch.cuda.synchronize()
     log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8; 2- and "
         "4-byte; 8, 16 and 32 lanes a row; 16-byte words 2 a lane), sample_hop at degree 0 and "
         "u near 1, f32 fanout mean (bitwise), ragged mean_project with a W ring, persistent "
-        "mean_project tiles (ragged, x 4 and 8 B off, W ring), mean_project backward (bf16, "
-        "f32): ok")
+        "mean_project tiles (ragged, x 4 and 8 B off, W ring), the f32-W mean_project's "
+        "ragged cases and its mean bitwise, the owner-masked mean's edge cases (bitwise), "
+        "mean_project backward (bf16, f32): ok")
     return results
 
 
@@ -566,7 +578,8 @@ def redesign_cases(torch, graph, levels, peaks, gen):
     step), against their plain versions: ``mean_project`` at the NCE step's
     layers (6,144 roots, row 5u), on the preps' f32 rows (512 x 25 and
     12,800 x 10, 64 and 666 wide, row 5x), at a model axis of 2's O = 64
-    (row 5t) and with an f32 W (row 5f, whose yardstick is the f32 product
+    (row 5t) and with an f32 W (row 5f: the main path's two layers and the
+    f32 NCE step's layer 0, 6,144 roots; its yardstick is the f32 product
     at "highest" precision); ``gather_rows`` on the int8 step's 602-byte rows
     (q = 512, 12,800, row 2i), on PPI-shaped 200-byte f32 rows (q = 64,000)
     and on exact inference's f32 rows 256 wide (q = 524,288, row 2x)."""
@@ -614,7 +627,9 @@ def redesign_cases(torch, graph, levels, peaks, gen):
         del rows, emb
     for label, x in (("TP layer 0", x0), ("TP layer 1", x1)):
         add_mp(label, x, weight(x.shape[2], DIMS[1] // 2))
-    for label, x in (("f32 W layer 0", x0.float()), ("f32 W layer 1", x1.float())):
+    for label, x in (("f32 W layer 0", x0.float()), ("f32 W layer 1", x1.float()),
+                     ("f32 W NCE layer 0", feats[ids_u.long()].view(6144, FANOUTS[0], dcol)
+                      .float())):
         add_mp(label, x, weight(x.shape[2], DIMS[1], torch.float32), peak=f32_peak,
                tol=(1e-5, 1e-5))
 
@@ -672,13 +687,98 @@ def check_mean_project_tiles(torch, mean_project, feats, gen):
             msg=lambda m, label=label, plan=plan: f"mean_project {label} (plan {plan}): {m}")
 
 
+def check_mean_project_f32(torch, mean_project, gather_mean, feats, gen):
+    """The f32-W kernel where the timed cases do not go, within (1e-5, 1e-5)
+    of its plain version: B not a multiple of a tile (511, 700, 6,143, 1),
+    an odd D (601: float words), O = 41 and 100 (W padded to a multiple of
+    4), x 4 bytes past 8-byte alignment (float words), W 4 bytes past 16
+    (copied to an aligned one), F = 40 (two reducer batches), D = 1 with
+    O = 1,816 (the widest O the earlier kernel took: W in 4-row blocks) and
+    D = 3,000; and its mean bitwise the plain version's (W = I, where each
+    output is one mean times 1 plus zeros; signed zeros compared as +0)."""
+    n, d = feats.shape
+    ids = torch.randint(0, n, (6144 * FANOUTS[0],), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    x = feats[ids.long()].view(6144, FANOUTS[0], d).float()
+    x0 = x[:BATCH].contiguous()
+    base = torch.empty(x0.numel() + 1, device="cuda")
+    xo = base[1:].view(x0.shape)
+    xo.copy_(x0)
+    assert xo.data_ptr() % 8 == 4
+    wo = torch.empty(d * DIMS[1] + 1, device="cuda")[1:].view(d, DIMS[1])
+    wo.copy_(torch.randn((d, DIMS[1]), generator=gen, device="cuda") / d ** 0.5)
+    cases = [("B = 511", x[:511], None), ("B = 700", x[:700], None), ("B = 6,143", x[:6143], None),
+             ("B = 1", x[:1], None), ("odd D", x0[:, :, :601].contiguous(), None),
+             ("O = 41", x0, 41), ("O = 100", x0, 100), ("x 4 B off", xo, None),
+             ("W 4 B off", x0, wo), ("F = 40", x0[:, :20].repeat(1, 2, 1).contiguous(), None),
+             ("D = 1, O = 1,816", x0[:64, :, :1].contiguous(), 1816),
+             ("D = 3,000", torch.randn((100, 5, 3000), generator=gen, device="cuda"), 7)]
+    for label, xc, o in cases:
+        w = o if isinstance(o, torch.Tensor) else torch.randn(
+            (xc.shape[2], o or DIMS[1]), generator=gen, device="cuda") / xc.shape[2] ** 0.5
+        ref = mean_project.mean_project_reference(xc, w)
+        torch.testing.assert_close(
+            mean_project.mean_project(xc, w), ref, rtol=1e-5,
+            atol=1e-5 * ref.abs().max().item(),
+            msg=lambda m, label=label: f"mean_project f32 W, {label}: {m}")
+    for label, xc in (("layer 0", x0), ("layer 1", torch.relu(torch.randn(
+            (BATCH, FANOUTS[0], 2 * DIMS[0]), generator=gen, device="cuda")))):
+        eye = torch.eye(xc.shape[2], device="cuda")
+        if not torch.equal(mean_project.mean_project(xc, eye) + 0.0,
+                           gather_mean.fanout_sum_mean(xc) + 0.0):
+            raise AssertionError(f"mean_project f32 W {label}: the mean is not bitwise the "
+                                 f"plain version's")
+
+
+def check_owned_edges(torch, gather_mean, gen):
+    """The owner-masked fanout mean bitwise its plain version where the timed
+    cases do not go: a root with no owned id, owned rows holding -0.0 (a
+    root of them only), ids at both ends of [lo, lo + m) and just outside,
+    f32, bf16 and int8 tables of even and odd widths (602 and 601; 301 f32;
+    2,000 f32 rows, which go in passes) whose base lies at every offset its
+    element allows past 16 bytes, and fanouts of 1, 33 and 40."""
+    n, lo, m, r = 4000, 1000, 1000, 2000
+    vals = torch.randn((n, 602), generator=gen, device="cuda")
+    vals[1100:1110] = -0.0
+    ids = torch.randint(0, n, (r * 40,), generator=gen, device="cuda", dtype=torch.int32)
+    ids[:10] = 5
+    ids[10:20] = torch.tensor([lo, lo + m - 1, 1099, lo - 1, lo + m, 1100, 1101, 1102, 1103,
+                               1104], device="cuda")
+    ids[20:30] = torch.arange(1100, 1110, device="cuda")
+
+    def q8(t):
+        return t.mul(30).clamp(-127, 127).to(torch.int8)
+
+    tables = [("bf16 602", vals.to(torch.bfloat16)), ("bf16 601", vals[:, :601].to(torch.bfloat16)),
+              ("f32 602", vals), ("f32 301", vals[:, :301]), ("int8 602", q8(vals)),
+              ("int8 601", q8(vals[:, :601])),
+              ("f32 2000", torch.randn((n, 2000), generator=gen, device="cuda"))]
+    for label, table in tables:
+        size = table.element_size()
+        for off in range(0, 16, size):
+            buf = torch.empty(table.numel() + 16, dtype=table.dtype, device="cuda")
+            t = buf[off // size:off // size + table.numel()].view(table.shape)
+            t.copy_(table)
+            local = t[lo:lo + m]
+            for f in ((10, 1, 33, 40) if off == 0 else (10,)):
+                idf = ids[:(ids.shape[0] // f) * f]
+                got = gather_mean.gather_fanout_mean_owned(local, idf, f, lo)
+                want = gather_mean.gather_fanout_mean_owned_reference(local, idf, f, lo)
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    raise AssertionError(f"gather_fanout_mean_owned {label} table +{off} B, "
+                                         f"F = {f}: differs from its plain version")
+
+
 def kernel_case(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=1.0,
-                tol=None, weight=1):
+                tol=None, weight=1, floor_bytes=None):
     """One timed case of ``kernel``: ``tol`` None asks for a bitwise match;
-    ``weight`` is its launches in one training step of the main path."""
+    ``weight`` is its launches in one training step of the main path;
+    ``floor_bytes``, where the bound counts distinct rows that only an
+    order-changing design could read once, the bytes of reading every id's
+    row (the no-reuse floor)."""
     return dict(kernel=kernel, case=case, kernel_fn=kernel_fn, plain_fn=plain_fn,
                 library_fn=library_fn, bytes=float(nbytes), flops=float(flops), peak=peak,
-                tol=tol, weight=weight)
+                tol=tol, weight=weight, floor_bytes=floor_bytes)
 
 
 def time_cases(torch, cases, bw):
@@ -712,10 +812,15 @@ def time_cases(torch, cases, bw):
                    bound_ms=max(bound_bytes, bound_ops),
                    bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                    bytes=c["bytes"])
+        floor = ""
+        if c["floor_bytes"] is not None:
+            res["no_reuse_floor_ms"] = c["floor_bytes"] / bw * 1e3
+            floor = (f"  no-reuse floor {res['no_reuse_floor_ms']:.4f} "
+                     f"({res['no_reuse_floor_ms'] / ms:.0%})")
         results.append(res)
         log(f"  {c['kernel']:<19} {c['case']:<52} err {err:.3g}  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f}  library {library_ms:.4f}  bound {res['bound_ms']:.4f} "
-            f"({res['bound_by']})")
+            f"({res['bound_by']}){floor}")
     return results
 
 
@@ -926,6 +1031,25 @@ def phase_main_path(torch, np, problem):
                                   "val_accuracy": val}}))
     profile_steps(torch, trainer, state, graph, batches[:PROFILE_STEPS], ms_step)
     return counts, ms_step
+
+
+def phase_main_path_f32(torch, np, problem):
+    """Phase 5 (b): the main path's configuration with ``compute_dtype``
+    float32, ``TrainConfig``'s default: the f32 table (561 MB), TRAIN_STEPS
+    steps with the launch counts from 0 held per step exactly (the main
+    path's; ``mean_project`` takes the f32-W kernel twice a step), the loss
+    finite and falling, ms/step, device ms/step, busy share and launches per
+    step. Returns the launch counts (train and eval)."""
+    from tpu_sage_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig(batch_size=BATCH, n_train_samples=FANOUTS, n_val_samples=FANOUTS,
+                      output_dims=DIMS, compute_dtype="float32", lr_init=0.01, epochs=1)
+    rec, counts = train_run(torch, np, "main path, f32", problem, cfg, TRAIN_STEPS, WARMUP_STEPS)
+    log(json.dumps({"f32_main_path": {k: rec[k] for k in (
+        "ms_per_step", "edges_per_s", "device_kernel_ms_per_step", "device_busy_share",
+        "kernel_launches_per_step", "launches_per_step", "loss_first", "loss_last",
+        "val_accuracy")}}))
+    return counts
 
 
 def device_profile(torch, fn, calls):
@@ -1877,7 +2001,7 @@ def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
         lambda: gather_mean.gather_fanout_mean_reference(feats, l2, f),
         lambda: feats[l2_64].float().view(r, f, d).mean(1),
         4 * l2.shape[0] + distinct(l2) * d * 2 + r * d * 4, flops=l2.shape[0] * d,
-        peak=f32_peak, weight=0))
+        peak=f32_peak, weight=0, floor_bytes=4 * l2.shape[0] + l2.shape[0] * d * 2 + r * d * 4))
     x0 = feats[tree[1].long()].view(-1, FANOUTS[0], d)
     x1 = torch.relu(torch.randn((x0.shape[0], FANOUTS[0], 2 * DIMS[0]), generator=gen,
                                 device="cuda")).to(torch.bfloat16)
@@ -2254,7 +2378,8 @@ def dist_kernel_cases(torch, graph, peaks):
                     own[:, None], t[(ids.long() - lo).clamp(0, t.shape[0] - 1)], 0
                 ).float().view(r, f, d).mean(1),
                 4 * ids.shape[0] + distinct(ids[own]) * d * table.element_size() + r * d * 4,
-                weight=0))
+                weight=0, floor_bytes=4 * ids.shape[0] + int(own.sum()) * d
+                * table.element_size() + r * d * 4))
             partials.append(gather_mean.gather_fanout_mean_owned(local, ids, f, lo))
         total = partials[0]
         for p in partials[1:]:
@@ -2275,7 +2400,8 @@ def dist_kernel_cases(torch, graph, peaks):
         lambda: gather_mean.gather_fanout_mean_owned(feats, ids, f, 0),
         lambda: gather_mean.gather_fanout_mean_owned_reference(feats, ids, f, 0),
         lambda: feats[ids.long()].float().view(r, f, d).mean(1),
-        4 * ids.shape[0] + distinct(ids) * d * 2 + r * d * 4, weight=1))
+        4 * ids.shape[0] + distinct(ids) * d * 2 + r * d * 4, weight=1,
+        floor_bytes=4 * ids.shape[0] + ids.shape[0] * d * 2 + r * d * 4))
 
     # an owner's answers to every rank's queries (4q ids, the others' zero
     # rows): level 1's features (4 x 6,400 ids of 1,204 bytes) and hop 2's
@@ -2628,7 +2754,8 @@ def multi_gpu_kernel_cases(torch, graph, peaks):
             lambda t=local, lo=lo, own=own: torch.where(
                 own[:, None], t[(ids.long() - lo).clamp(0, t.shape[0] - 1)], 0
             ).float().view(r, f, d).mean(1),
-            4 * ids.shape[0] + distinct(ids[own]) * d * 2 + r * d * 4, weight=0))
+            4 * ids.shape[0] + distinct(ids[own]) * d * 2 + r * d * 4, weight=0,
+            floor_bytes=4 * ids.shape[0] + int(own.sum()) * d * 2 + r * d * 4))
     lids = (tree[1] - m).contiguous()
     own = (lids >= 0) & (lids < m)
     local = feats[m:2 * m]
@@ -3350,6 +3477,7 @@ def main() -> int:
     phase("phase 5: main path")
     main_counts, main_ms = phase_main_path(torch, np, problem)
     by_path = {"train_steps": main_counts}
+    by_path["f32_train"] = phase_main_path_f32(torch, np, problem)
 
     phase("phase 6: serving path")
     by_path.update(phase_serving(torch, np, smi, peaks))
@@ -3400,6 +3528,7 @@ def main() -> int:
             "launches": sum(c[name_k] for c in by_path.values()),
             "launches_by_path": {path: c[name_k] for path, c in by_path.items()},
             "launches_per_step": PER_STEP[name_k],
+            "launches_per_step_f32": PER_STEP[name_k],
             "launches_per_step_int8_csr": STORAGE_PER_STEP[name_k],
             "launches_per_step_unsupervised": unsup_per_step()[name_k],
             "launches_per_step_fused_first_layer": FUSED_PER_STEP[name_k],
@@ -3413,7 +3542,8 @@ def main() -> int:
                          else "operations"),
             "library_ms": step("library_ms"),
             "cases": [{k: r[k] for k in ("case", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")} for r in rows],
+                                         "bound_by", "library_ms", "no_reuse_floor_ms")
+                       if k in r} for r in rows],
         })
     log(json.dumps({"phase_wall_s": walls}))
     log(f"{smi}")

@@ -14,7 +14,6 @@ from tpu_sage.data.synthetic import sbm_store as j_sbm_store
 from tpu_sage.dist.mesh import make_mesh
 from tpu_sage.dist.train import fit_partitioned as j_fit_partitioned
 from tpu_sage.train.trainer import TrainConfig as JTrainConfig
-from tpu_sage_torch.dist import mesh as tmesh
 
 PORT_WORLD = 2
 
@@ -31,7 +30,7 @@ def runs(tmp_path_factory, eight_devices):
     jax_recs = []
     _, _, jhist = j_fit_partitioned(store, _jax_config(2), mesh=make_mesh(), log=jax_recs.append,
                                     resume_from=str(out / "jax.npz"), checkpoint_every=1)
-    tmesh.spawn(W.checkpoint_checks, PORT_WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.checkpoint_checks, PORT_WORLD, str(out))
     port = torch.load(out / "rank0.pt", weights_only=False)
     back = []
     _, _, jhist2 = j_fit_partitioned(store, _jax_config(4), mesh=make_mesh(n_devices=4),

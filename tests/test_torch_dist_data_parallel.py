@@ -33,7 +33,7 @@ def port(tmp_path_factory):
     out = tmp_path_factory.mktemp("dp")
     _, levels = _levels()
     np.savez(out / "inputs.npz", **{f"level{i}": l for i, l in enumerate(levels)})
-    tmesh.spawn(W.dp_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.dp_checks, WORLD, str(out))
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

@@ -27,7 +27,6 @@ from tpu_sage.dist.mesh import make_mesh
 from tpu_sage.dist.partition import shard_graph_csr as j_shard_graph_csr
 from tpu_sage.dist.train import make_gather_last as j_make_gather_last
 from tpu_sage.sample.sampler import uniform_neighbor_sample as j_uniform_neighbor_sample
-from tpu_sage_torch.dist import mesh as tmesh
 from tpu_sage_torch.kernels import gather_mean
 
 WORLD = 4
@@ -55,7 +54,7 @@ def port(tmp_path_factory, hop_inputs):
     out = tmp_path_factory.mktemp("halo")
     frontier, u, _ = hop_inputs
     np.savez(out / "inputs.npz", frontier=frontier, u=u)
-    tmesh.spawn(W.halo_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.halo_checks, WORLD, str(out))
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

@@ -23,7 +23,6 @@ from tests import torch_dist_workers as W
 from tpu_sage.dist import halo as jhalo
 from tpu_sage.dist.data_parallel import param_shardings as j_param_shardings
 from tpu_sage.dist.mesh import make_mesh
-from tpu_sage_torch.dist import mesh as tmesh
 from tpu_sage_torch.dist.data_parallel import param_shardings, split_kernels
 from tpu_sage_torch.dist.partition import pad_to_shards
 from tpu_sage_torch.dist.train import PartitionedTrainer, halo_candidates
@@ -39,7 +38,7 @@ TABLES = ["f32", "bf16", "int8"]
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     out = tmp_path_factory.mktemp("hier2d")
-    tmesh.spawn(W.hier2d_tp_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.hier2d_tp_checks, WORLD, str(out))
     return out, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

@@ -18,7 +18,6 @@ from tests import torch_dist_workers as W
 from tpu_sage.nn.model import GSSupervised as JGSSupervised
 from tpu_sage.nn.model import default_layer_specs as j_specs
 from tpu_sage.train.losses import cross_entropy as j_cross_entropy
-from tpu_sage_torch.dist import mesh as tmesh
 from tpu_sage_torch.dist.partition import pad_to_shards, shard_fold
 from tpu_sage_torch.nn.full_graph import embed_all_nodes
 from tpu_sage_torch.nn.model import GSSupervised, default_layer_specs
@@ -32,7 +31,7 @@ WORLD = 4
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     out = tmp_path_factory.mktemp("train")
-    tmesh.spawn(W.train_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.train_checks, WORLD, str(out))
     return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

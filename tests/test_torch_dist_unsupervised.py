@@ -23,7 +23,6 @@ from tpu_sage.dist.unsupervised import PartitionedUnsupervisedTrainer as JTraine
 from tpu_sage.train.trainer import TrainConfig as JTrainConfig
 from tpu_sage.train.unsupervised import UnsupConfig as JUnsupConfig
 from tpu_sage_torch.data.synthetic import sbm_problem
-from tpu_sage_torch.dist import mesh as tmesh
 from tpu_sage_torch.dist.partition import pad_to_shards, shard_fold
 from tpu_sage_torch.dist.unsupervised import draw_global_negatives, neg_logits
 from tpu_sage_torch.nn.params import flax_key
@@ -36,7 +35,7 @@ WORLD = 4
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
     out = tmp_path_factory.mktemp("nce")
-    tmesh.spawn(W.nce_checks, WORLD, "cpu", (str(out),), store_dir=str(out))
+    W.spawn_ranks(W.nce_checks, WORLD, str(out))
     return out, [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
 
 

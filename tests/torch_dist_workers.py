@@ -18,6 +18,28 @@ import numpy as np
 import torch
 
 N_ROWS, WIDTH, QUERIES, FANOUT = 64, 16, 40, 5  # halo tables: 64 rows of 16, 40 ids per rank
+ONE_THREAD = {"OMP_NUM_THREADS": "1"}  # each rank's environment
+
+
+def spawn_ranks(fn, world_size: int, out_dir: str) -> None:
+    """``tpu_sage_torch.dist.mesh.spawn(fn, world_size, "cpu", (out_dir,))``
+    with ``ONE_THREAD`` in the ranks' environment, so that the OpenMP and
+    BLAS pools each rank's torch and numpy start at import hold one thread,
+    as ``torch.set_num_threads(1)`` at each rank body's start does for
+    torch's own ops: 2-4 ranks a file beside several test workers would
+    otherwise start a pool of the host's cores each."""
+    from tpu_sage_torch.dist import mesh
+
+    saved = {k: os.environ.get(k) for k in ONE_THREAD}
+    os.environ.update(ONE_THREAD)
+    try:
+        mesh.spawn(fn, world_size, "cpu", (out_dir,), store_dir=out_dir)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def halo_inputs(world: int):

@@ -39,6 +39,19 @@ for are built, with this checkout's ``nvcc`` flags, into
   the main path's two layers (512, 25, 602 / 256) at O = 128 and at a model
   axis of 2's O = 64, the NCE step's layers (6,144 roots), and the preps'
   f32 rows (512 x 25 and 12,800 x 10, 64 and 666 wide).
+- ``mean_project_f32``: ``tsg_mean_project_f32(x, w, out, b, f, d, o,
+  stream)``, the f32-W kernel of ``ffdaddb`` (4 roots a block, W read from
+  L2), against this ``mean_project`` with an f32 W: the main path's two
+  layers (512, 25, 602) x (602, 128) and (512, 25, 256) x (256, 128) and
+  the f32 NCE step's layer 0 (6,144, 25, 602) x (602, 128).
+- ``owned``: ``tsg_gather_fanout_mean_owned(table, ids, out, lo, m,
+  n_roots, d, fanout, kind, vec, stream)`` of ``ffdaddb`` (one warp a root,
+  5 ids in flight, the widest word that divides the row), against this
+  ``gather_fanout_mean_owned``: the partitioned step's deepest level
+  (25,600 roots x 10 from a 1,024-root tree) at world 1 and for each of 4
+  owners of the bf16 and the int8 table, and the partitioned NCE step's
+  (153,600 roots x 10 from a 6,144-root tree) at world 1 and as owner 1 of
+  4 ((2, 2) layout), as ``chip_smoke.py`` phases 10 and 11 build them.
 
 The inputs are the ones ``chip_smoke.py`` phase 3 uses (Reddit-shaped
 ``bench_store``, batch 512, fanouts (25, 10), seed 0), and at the other
@@ -75,7 +88,12 @@ _OTHER = {  # pair -> the other checkout's (source, entry point, argtypes) it ca
                   (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),),
     "mean_project13": (("mean_project", "tsg_mean_project_bf16",
                         (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _LL, _P)),),
+    "mean_project_f32": (("mean_project", "tsg_mean_project_f32",
+                          (_P, _P, _P, _LL, _I, _I, _I, _P)),),
+    "owned": (("gather_mean", "tsg_gather_fanout_mean_owned",
+               (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),),
 }
+OWNERS, DIST_BATCH, NCE_ROOTS = 4, 1024, 6144  # chip_smoke.py phases 10 and 11
 PPI_ROWS, EXACT_CHUNK = (56_944, 50), 4096  # chip_smoke.py's PPI stand-in; a node chunk
 
 
@@ -192,7 +210,56 @@ def main(argv=None) -> int:
             stream()), "other tsg_mean_project_bf16 (13 arguments)")
         return out[:, :w.shape[1]]
 
+    def other_mean_project_f32(x, w):
+        b, f, dx = x.shape
+        out = torch.empty((b, w.shape[1]), dtype=torch.float32, device="cuda")
+        _build.check_launch(other["tsg_mean_project_f32", 8](
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, dx, w.shape[1], stream()),
+            "other tsg_mean_project_f32 (8 arguments)")
+        return out
+
+    def other_owned(table, ids, fanout, lo):
+        m, dt = table.shape
+        out = torch.empty((ids.shape[0] // fanout, dt), dtype=torch.float32, device="cuda")
+        int8 = table.dtype == torch.int8
+        vec = gather_mean.int8_word_bytes(table) if int8 else gather_mean.word_elements(table)
+        _build.check_launch(other["tsg_gather_fanout_mean_owned", 11](
+            table.data_ptr(), ids.data_ptr(), out.data_ptr(), lo, m, out.shape[0], dt, fanout,
+            2 if int8 else 1, vec, stream()), "other tsg_gather_fanout_mean_owned")
+        return out
+
     pairs = {}
+    if "mean_project_f32" in pairs_wanted:
+        ids_u = torch.randint(0, n, (NCE_ROOTS * 25,), generator=gen, device="cuda",
+                              dtype=torch.int32)
+        for label, x in (("layer 0", feats[l1.long()].view(512, 25, d).float()),
+                         ("layer 1", torch.relu(torch.randn((512, 25, 256), generator=gen,
+                                                            device="cuda"))),
+                         ("NCE layer 0", feats[ids_u.long()].view(NCE_ROOTS, 25, d).float())):
+            w = torch.randn((x.shape[2], 128), generator=gen, device="cuda") / x.shape[2] ** 0.5
+            pairs[f"mean_project f32 {label} x {tuple(x.shape)}, W {tuple(w.shape)}"] = (
+                lambda x=x, w=w: other_mean_project_f32(x, w),
+                lambda x=x, w=w: mean_project.mean_project(x, w))
+    if "owned" in pairs_wanted:
+        q8 = torch.clamp(torch.round(feats.float() / (feats.float().abs().amax(0) / 127)),
+                         -127, 127).to(torch.int8)
+        dist_roots = torch.randperm(n, generator=gen, device="cuda")[:DIST_BATCH].int()
+        dist_ids = sample_tree(adj, degrees, dist_roots, (25, 10), generator=gen)[2]
+        nce_roots = torch.randint(0, n, (NCE_ROOTS,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        nce_ids = sample_tree(adj, degrees, nce_roots, (25, 10), generator=gen)[2]
+        m = -(-n // OWNERS)
+        cases = [("4d world 1", feats, dist_ids, 0)]
+        for label, table in (("bf16", feats), ("int8", q8)):
+            cases += [(f"4d {label} owner {s_}/{OWNERS}", table[lo:lo + m], dist_ids, lo)
+                      for s_, lo in enumerate(range(0, n, m))]
+        cases += [("4n world 1", feats, nce_ids, 0),
+                  ("4n (2, 2) owner 1 of 4", feats[m:2 * m], nce_ids, m)]
+        for label, table, ids, lo in cases:
+            pairs[f"owned {label} {str(table.dtype)[6:]} {tuple(table.shape)} "
+                  f"ids={ids.shape[0]} F=10"] = (
+                lambda t=table, i=ids, lo=lo: other_owned(t, i, 10, lo),
+                lambda t=table, i=ids, lo=lo: gather_mean.gather_fanout_mean_owned(t, i, 10, lo))
     if "gather11" in pairs_wanted:
         other_gather_mod = _other_module(args.other, "gather")
         q8 = torch.randint(-128, 128, feats.shape, generator=gen, device="cuda",

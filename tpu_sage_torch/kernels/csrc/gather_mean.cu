@@ -438,13 +438,27 @@ extern "C" int tsg_gather_fanout_mean_int8(const void* table, const void* ids,
 // reference's dist path does. Bitwise the plain version
 // (kernels/gather_mean.py::gather_fanout_mean_owned_reference).
 //
-// Bound on the H100: bytes, as for the dense kernel above: the owned rows
-// read once (about 1/world of the level's distinct rows) and the f32
-// partial means written once (R*d*4 bytes, every root's, owned or not). The
-// design is the dense kernel's (one warp per root, the first F lanes load
-// the root's ids and __shfl_sync hands them out, kJ rows' loads in flight)
-// with a range test per id: a row the rank does not own is not loaded, and
-// its word stays zero.
+// A row the rank does not own is skipped, not added as +0.0: the sum starts
+// at +0.0, and in round-to-nearest a sum is -0.0 only when both terms are,
+// so the accumulator never holds -0.0 and acc + (+0.0) == acc bitwise.
+//
+// Bound on the H100: bytes: the owned rows read once and the f32 partial
+// means written once (R*d*4 bytes, every root's, owned or not). Rows are
+// reused across roots only by reordering the f32 sums (sorting ids, windows
+// sized to L2), so the order-keeping floor is every owned id's row read,
+// plus the ids and the output. The design is the dense kernel's (one warp
+// per root, 4 roots a block, the first F lanes load the root's ids and
+// __shfl_sync hands them out, each row read in the widest word that divides
+// it, non-coherent loads that skip L1), with the loads in flight counted in
+// OWNED rows: the warp ballots which of a 32-id block's ids it owns and
+// issues the loads of the next kJ = 5 owned rows, in j order, before adding
+// any, so at 4 owners (about 2.5 of a root's 10 ids) a root's rows are one
+// batch, not two half-empty ones. When every id of the block is owned (one
+// owner, world 1) it takes them kJ at a time directly, with the loads the
+// unmasked kernel issues. Realigned 16-byte words (a row read as the
+// aligned words that cover it, shifted into place), with the rows held in
+// registers or in a per-warp ring of cp.async slots across roots, measured
+// slower on the H100 at every shape (PERF.md).
 
 namespace {
 
@@ -492,23 +506,34 @@ gather_fanout_mean_owned_kernel(const T* __restrict__ table, const int32_t* __re
     for (int jb = 0; jb < fanout; jb += 32) {
       const int64_t my_id = jb == 0 ? first_ids : load_id(jb + lane);
       const int jend = min(fanout, jb + 32);
+      const unsigned in_block = jend - jb == 32 ? 0xffffffffu : (1u << (jend - jb)) - 1u;
+      unsigned owned = __ballot_sync(0xffffffffu, my_id >= 0) & in_block;  // warp-uniform
+      const bool all = owned == in_block;
 #pragma unroll 1
-      for (int j0 = jb; j0 < jend; j0 += kJ) {
+      for (int j0 = jb; owned; j0 += kJ) {
+        // the next kJ owned ids, in j order: every id's when all are owned
+        int64_t rid[kJ];
+#pragma unroll
+        for (int jj = 0; jj < kJ; ++jj) {
+          const int j = all ? j0 - jb + jj : (owned ? __ffs(owned) - 1 : 0);
+          const int64_t id = __shfl_sync(0xffffffffu, my_id, j & 31);
+          rid[jj] = (all ? j0 + jj < jend : owned != 0) ? id : -1;
+          owned &= all ? (j0 + jj + 1 < jend ? ~0u : 0u) : owned - 1;
+        }
         W v[kJ][kK];
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
-          const int64_t id = __shfl_sync(0xffffffffu, my_id, j0 - jb + jj);
-          const W* row = reinterpret_cast<const W*>(table + (id < 0 ? 0 : id) * d);
+          const W* row = reinterpret_cast<const W*>(table + (rid[jj] < 0 ? 0 : rid[jj]) * d);
 #pragma unroll
           for (int k = 0; k < kK; ++k) {
             const int wi = w0 + k * 32 + lane;
-            v[jj][k] = W{};  // a row not owned adds +0.0 (int8: 0)
-            if (j0 + jj < jend && wi < words && id >= 0) ld_nc(v[jj][k], row + wi);
+            v[jj][k] = W{};
+            if (wi < words && rid[jj] >= 0) ld_nc(v[jj][k], row + wi);
           }
         }
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
-          if (j0 + jj < jend) {
+          if (rid[jj] >= 0) {
 #pragma unroll
             for (int k = 0; k < kK; ++k)
 #pragma unroll

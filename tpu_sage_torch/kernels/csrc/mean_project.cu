@@ -73,9 +73,44 @@
 //      their fragments before their products issue, into two accumulators
 //      (even and odd k-steps); the halves of K meet in shared memory, and
 //      the sum is rounded once to bf16 and stored.
-// The f32 path stays exact f32 on the SIMT units (no TF32): a block reduces
-// four roots' mean into shared memory and its warps accumulate partial
-// products over slices of D that are added in a fixed order.
+//
+// f32 design (f32 W, f32 x). The product stays exact f32 on the SIMT units
+// (TF32 does not meet "highest"); at the main path's shapes it is about 79
+// MFLOP, a microsecond of the card's f32 rate, so x's stream sets the time,
+// and W (308,224 B at D = 602, O = 128, more than a block's shared memory)
+// must be read by every block beside that stream, not after it. Persistent
+// blocks of 16 warps: a grid of min(B, SMs) blocks, each taking an even
+// share of the roots (no block has more than one root above another's) and
+// walking it in tiles of TB roots (a multiple of 4, at most 16: one tile a
+// block at B = 512, three at B = 6,144). A tile is cut into column chunks
+// of KC = 32 V columns (V = 2: float2 words, when D is even and x 8-byte
+// aligned; else V = 1), and the warps split into three roles that run at
+// once, chunk by chunk, meeting at mbarriers:
+//   1. 11 reducer warps: a warp takes (chunk, root) items in chunk-major
+//      order, and each lane copies its V columns of the root's F rows of the
+//      chunk into the warp's two shared-memory buffers with cp.async, in
+//      batches of FB <= 32 rows, the next batch in flight while it sums this
+//      one in f32 registers in the order j = 0, 1, ..., divides by F and
+//      stores the mean into a ring of MS chunk slots ((KC, TB), roots
+//      contiguous);
+//   2. 1 producer thread streams W through a ring of NWB buffers of KW rows
+//      with 1-D bulk copies (cp.async.bulk, the TMA engine), so each block
+//      reads W once a tile, while x streams;
+//   3. 4 product warps: items of (4 roots, 128 output columns), each lane a
+//      4 x 4 tile (one broadcast 16-byte read of the 4 roots' means and one
+//      16-byte W read a row, 16 fused multiply-adds), accumulate mean . W
+//      over the chunks in order as their means and W rows arrive; with
+//      fewer items than product warps (B = 512: one item a tile) each item's
+//      K is split among ks warps whose partial tiles are added in a fixed
+//      order at the tile's end.
+// The mean is bitwise the plain version's; the product's order of summation
+// is the chunks' and rows' (and the K split's), in f32 with fused
+// multiply-adds. Measured on the H100 (PERF.md): with x loaded
+// straight into registers the loads went out one row at a time (0.9
+// TB/s); a product of one column and 4 roots a lane took longer than the x
+// stream; an L2 prefetch of the batch after the next, tiles of 48 roots at
+// B = 6,144, and more than 196 KB of shared memory where x paces the tile
+// (the L1 keeps the lines of the 8-byte cp.async copies) were slower.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -598,78 +633,291 @@ mean_project_bf16_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restri
 
 // ---- f32 path ------------------------------------------------------------
 
-constexpr int kTB = 4;        // roots per block
-constexpr int kF32Warps = 8;  // warps per block
-constexpr int kNO = 4;        // output columns per lane per pass (32 * kNO per pass)
+constexpr int kF32Warps = 16;                           // 512 threads
+constexpr int kProdWarps = 4;                           // warps 1 .. 4
+constexpr int kRedWarps = kF32Warps - 1 - kProdWarps;   // warps 5 .. 15
+constexpr int kF32BarBytes = 512;
+constexpr int kRedBytes = kProdWarps * 32 * 16 * 4;     // the K split's partial tiles
 
-__global__ void __launch_bounds__(kF32Warps * 32)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void product_sync() {  // the 4 product warps only
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kProdWarps * 32) : "memory");
+}
+
+template <int V> struct FWord;
+template <> struct FWord<1> { using T = float; };
+template <> struct FWord<2> { using T = float2; };
+__device__ __forceinline__ float comp(float v, int) { return v; }
+__device__ __forceinline__ float comp(float2 v, int e) { return e == 0 ? v.x : v.y; }
+
+// The shared-memory layout of the f32 kernel: the rings' mbarriers, two x
+// buffers of FB rows of a chunk for each reducer warp, MS mean slots of (KC,
+// TB) f32, NWB W buffers of (KW, O_pad) f32, and the K split's partial
+// tiles when K is split; the plan (kernels/mean_project.py::f32_plan)
+// computes the same numbers.
+struct F32Layout {
+  size_t xbuf_off, mean_off, w_off, red_off, total;
+  __host__ __device__ F32Layout(int kc, int fb, int tb, int ms, int kw, int o_pad, int nwb,
+                                int ks) {
+    xbuf_off = kF32BarBytes;
+    mean_off = xbuf_off + (size_t)kRedWarps * 2 * fb * kc * 4;
+    w_off = mean_off + (size_t)ms * tb * kc * 4;
+    red_off = w_off + (size_t)nwb * kw * o_pad * 4;
+    total = red_off + (ks > 1 ? kRedBytes : 0);
+  }
+};
+
+// The product's work: items of (4 roots, 128 output columns), each lane a
+// 4 x 4 tile of them; when there are fewer items than product warps, each
+// item's K is split among ks = kProdWarps / items warps (rows k = kpart mod
+// ks), whose partial tiles meet in shared memory in a fixed order.
+__host__ __device__ inline int f32_ks(int tb, int o_pad) {
+  const int items = (tb / 4) * ((o_pad + 127) / 128);
+  return items >= kProdWarps ? 1 : kProdWarps / items;
+}
+
+// V: elements of an x word (2: float2, 1: float). NI: product items a
+// product warp. x (b, f, d) f32; w (d, o_pad) f32 with a 16-byte-aligned
+// base; out (b, o) f32.
+template <int V, int NI>
+__global__ void __launch_bounds__(kF32Warps * 32, 1)
 mean_project_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                        float* __restrict__ out, int64_t b, int f, int d, int o) {
-  extern __shared__ float fsmem[];
-  float* mean = fsmem;              // (kTB, d)
-  float* part = fsmem + kTB * d;    // (kF32Warps, kTB, o)
-  const int64_t b0 = (int64_t)blockIdx.x * kTB;
-  const int rows = (int)((b - b0) < kTB ? (b - b0) : kTB);
+                        float* __restrict__ out, int64_t b, int f, int d, int o, int o_pad,
+                        int fb, int tb, int ms, int kw, int nwb) {
+  using XW = typename FWord<V>::T;
+  constexpr int kKC = 32 * V;  // columns of a chunk
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ks = f32_ks(tb, o_pad);
+  const F32Layout lay(kKC, fb, tb, ms, kw, o_pad, nwb, ks);
+  const uint32_t full_m = smem_u32(smem);  // barrier i of each kind at + 8 i
+  const uint32_t empty_m = full_m + 8 * ms;
+  const uint32_t full_w = empty_m + 8 * ms;
+  const uint32_t empty_w = full_w + 8 * nwb;
+  float* mring = reinterpret_cast<float*>(smem + lay.mean_off);
+  float* wring = reinterpret_cast<float*>(smem + lay.w_off);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  // 1. fanout mean of this block's roots, f32, in shared memory
-  for (int idx = threadIdx.x; idx < kTB * d; idx += blockDim.x) {
-    const int r = idx / d;
-    const int c = idx - r * d;
-    float acc = 0.f;
-    if (r < rows) {
-      const float* xp = x + (b0 + r) * (int64_t)f * d + c;
-      acc = xp[0];
+  // the block's roots: an even share, [r_begin, r_end), in tiles of tb
+  const int64_t bx = blockIdx.x;
+  const int64_t per = b / gridDim.x, extra = b - per * gridDim.x;
+  const int64_t r_begin = bx * per + (bx < extra ? bx : extra);
+  const int64_t r_end = r_begin + per + (bx < extra ? 1 : 0);
+  const int tiles = (int)((r_end - r_begin + tb - 1) / tb);
+  const int nch = (d + kKC - 1) / kKC;
+  auto chunk_cols = [&](int c) { return min(kKC, d - c * kKC); };
+
+  if (tid == 0) {
+    for (int i = 0; i < ms; ++i) {
+      mbar_init(full_m + 8 * i, tb * 32);           // every reducer lane of a chunk's tb items
+      mbar_init(empty_m + 8 * i, kProdWarps * 32);  // every product lane
+    }
+    for (int i = 0; i < nwb; ++i) {
+      mbar_init(full_w + 8 * i, 1);                 // the producer's expect_tx
+      mbar_init(empty_w + 8 * i, kProdWarps * 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // 2. the producer: W's blocks of kw rows, for each tile and chunk in order
+    if (lane == 0) {
+      int s = 0;
+#pragma unroll 1
+      for (int t = 0; t < tiles; ++t)
+#pragma unroll 1
+        for (int c = 0; c < nch; ++c) {
+          const int kc = chunk_cols(c);
+#pragma unroll 1
+          for (int k0 = 0; k0 < kc; k0 += kw, ++s) {
+            const int slot = s % nwb, use = s / nwb;
+            if (use > 0) mbar_wait(empty_w + 8 * slot, (use - 1) & 1);
+            const uint32_t bytes = (uint32_t)(min(kw, kc - k0) * o_pad * 4);
+            mbar_expect_tx(full_w + 8 * slot, bytes);
+            bulk_copy(smem_u32(wring + (size_t)slot * kw * o_pad),
+                      w + (int64_t)(c * kKC + k0) * o_pad, bytes, full_w + 8 * slot);
+          }
+        }
+    }
+    return;
+  }
+
+  if (warp > kProdWarps) {
+    // 1. the reducers: item i = (tile t, chunk c, root r), chunk-major, in
+    // batches of fb rows. A lane copies its V columns of a batch's rows into
+    // the warp's buffer with cp.async while it sums the previous batch, and
+    // reads back only what it copied. A ragged tile's missing roots still
+    // arrive, so a chunk always counts tb
+    const int rw = warp - 1 - kProdWarps;
+    const int per_tile = nch * tb, n_items = tiles * per_tile;
+    const int nb = (f + fb - 1) / fb;  // batches of an item
+    XW* xb = reinterpret_cast<XW*>(smem + lay.xbuf_off) + (size_t)rw * 2 * fb * 32;
+    const float fd = (float)f;
+    const int col = lane * V;
+    auto decode = [&](int i, int64_t& root, int& c, int& r) {
+      const int t = i / per_tile, rem = i - t * per_tile;
+      c = rem / tb;
+      r = rem - c * tb;
+      root = r_begin + (int64_t)t * tb + r;
+      return root < r_end;
+    };
+    auto next_stage = [&](int& i, int& bt) {
+      if (++bt == nb) {
+        bt = 0;
+        i += kRedWarps;
+      }
+    };
+    auto issue = [&](int i, int bt, int buf) {
+      int64_t root;
+      int c, r;
+      if (i < n_items && decode(i, root, c, r) && col < chunk_cols(c)) {
+        const float* src = x + root * f * (int64_t)d + c * kKC + col;
+        XW* dst = xb + (size_t)buf * fb * 32 + lane;
+        const int j1 = min(f, (bt + 1) * fb);
+#pragma unroll 4
+        for (int j = bt * fb; j < j1; ++j)
+          cp_async<4 * V>(smem_u32(dst + (j - bt * fb) * 32), src + (int64_t)j * d);
+      }
+      cp_async_commit();
+    };
+    float acc[V];
+    int i = rw, bt = 0, buf = 0;
+    issue(i, 0, 0);
+#pragma unroll 1
+    while (i < n_items) {
+      int ni_ = i, nbt = bt;
+      next_stage(ni_, nbt);
+      issue(ni_, nbt, buf ^ 1);
+      cp_async_wait_ring();  // this batch's copies have landed (the next one's in flight)
+      int64_t root;
+      int c, r;
+      const bool live = decode(i, root, c, r) && col < chunk_cols(c);
+      if (live) {
+        const XW* src = xb + (size_t)buf * fb * 32 + lane;
+        const int j0 = bt * fb, j1 = min(f, j0 + fb);
 #pragma unroll 5
-      for (int j = 1; j < f; ++j) acc += xp[(int64_t)j * d];
-      acc /= (float)f;
+        for (int j = j0; j < j1; ++j) {
+          const XW v = src[(j - j0) * 32];
+#pragma unroll
+          for (int e = 0; e < V; ++e) acc[e] = j == 0 ? comp(v, e) : acc[e] + comp(v, e);
+        }
+      }
+      if (bt == nb - 1) {
+        const int q = i / tb, slot = q % ms, use = q / ms;  // q = t * nch + c
+        if (use > 0) mbar_wait(empty_m + 8 * slot, (use - 1) & 1);
+        if (live) {
+          float* dst = mring + (size_t)slot * kKC * tb + r;
+#pragma unroll
+          for (int e = 0; e < V; ++e) dst[(col + e) * tb] = acc[e] / fd;
+        }
+        mbar_arrive(full_m + 8 * slot);
+      }
+      i = ni_;
+      bt = nbt;
+      buf ^= 1;
     }
-    mean[idx] = acc;
+    cp_async_wait_all();
+    return;
   }
-  __syncthreads();
 
-  // 2. each warp: partial products over its slice of d
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int per = (d + kF32Warps - 1) / kF32Warps;
-  const int c_lo = warp * per;
-  const int c_hi = min(d, c_lo + per);
-  for (int o0 = 0; o0 < o; o0 += 32 * kNO) {
-    float acc[kNO][kTB];
+  // 3. the product warps: slot g = pw, pw + kProdWarps, ... is item g %
+  // items (roots 4 (item % nrg) .. + 3, columns 128 (item / nrg) + 4 lane ..
+  // + 3) and K part g / items
+  const int pw = warp - 1;
+  const int nrg = tb / 4, items = nrg * ((o_pad + 127) / 128);
+  int moff[NI], wcol[NI], kpart[NI];
 #pragma unroll
-    for (int k = 0; k < kNO; ++k)
+  for (int ii = 0; ii < NI; ++ii) {
+    const int g = pw + kProdWarps * ii, item = g % items;
+    moff[ii] = 4 * (item % nrg);
+    wcol[ii] = g < items * ks ? (item / nrg) * 128 + 4 * lane : o_pad;
+    kpart[ii] = g / items;
+  }
+  float* red = reinterpret_cast<float*>(smem + lay.red_off);
+  int s = 0;
+#pragma unroll 1
+  for (int t = 0; t < tiles; ++t) {
+    float acc[NI][4][4];
 #pragma unroll
-      for (int r = 0; r < kTB; ++r) acc[k][r] = 0.f;
-    for (int c = c_lo; c < c_hi; ++c) {
-      float mv[kTB];
+    for (int ii = 0; ii < NI; ++ii)
 #pragma unroll
-      for (int r = 0; r < kTB; ++r) mv[r] = mean[r * d + c];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int k = 0; k < kNO; ++k) {
-        const int oo = o0 + k * 32 + lane;
-        const float wv = oo < o ? w[(int64_t)c * o + oo] : 0.f;
+        for (int e = 0; e < 4; ++e) acc[ii][r][e] = 0.f;
+#pragma unroll 1
+    for (int c = 0; c < nch; ++c) {
+      const int q = t * nch + c, slot = q % ms;
+      mbar_wait(full_m + 8 * slot, (q / ms) & 1);
+      const int kc = chunk_cols(c);
+      const float* mslot = mring + (size_t)slot * kKC * tb;
+#pragma unroll 1
+      for (int k0 = 0; k0 < kc; k0 += kw, ++s) {
+        const int wslot = s % nwb;
+        mbar_wait(full_w + 8 * wslot, (s / nwb) & 1);
+        const float* wb = wring + (size_t)wslot * kw * o_pad;
+        const int rows = min(kw, kc - k0);
 #pragma unroll
-        for (int r = 0; r < kTB; ++r) acc[k][r] += mv[r] * wv;
+        for (int ii = 0; ii < NI; ++ii) {
+          if (wcol[ii] < o_pad) {
+            // rows k with (c * kKC + k0 + k) = kpart (mod ks)
+            int k = (kpart[ii] - (c * kKC + k0) % ks + ks) % ks;
+#pragma unroll 4
+            for (; k < rows; k += ks) {
+              const float4 m4 = *reinterpret_cast<const float4*>(mslot + (k0 + k) * tb + moff[ii]);
+              const float4 w4 = *reinterpret_cast<const float4*>(wb + k * o_pad + wcol[ii]);
+              const float mv[4] = {m4.x, m4.y, m4.z, m4.w}, wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+              for (int r = 0; r < 4; ++r)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[ii][r][e] = fmaf(mv[r], wv[e], acc[ii][r][e]);
+            }
+          }
+        }
+        mbar_arrive(empty_w + 8 * wslot);
+      }
+      mbar_arrive(empty_m + 8 * slot);
+    }
+    // the tile's outputs; a split K's parts are added in order 0, 1, ...
+    if (ks > 1) {  // then NI = 1 and every product warp holds one part
+      if (kpart[0] > 0) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<float4*>(red + ((pw * 4 + r) * 32 + lane) * 4) =
+              make_float4(acc[0][r][0], acc[0][r][1], acc[0][r][2], acc[0][r][3]);
+      }
+      product_sync();
+      if (kpart[0] == 0) {
+        for (int p = 1; p < ks; ++p) {
+          const int src = pw + p * items;  // the warp of part p
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(red + ((src * 4 + r) * 32 + lane) * 4);
+            acc[0][r][0] += v.x;
+            acc[0][r][1] += v.y;
+            acc[0][r][2] += v.z;
+            acc[0][r][3] += v.w;
+          }
+        }
       }
     }
+    const int64_t root0 = r_begin + (int64_t)t * tb;
 #pragma unroll
-    for (int k = 0; k < kNO; ++k) {
-      const int oo = o0 + k * 32 + lane;
-      if (oo < o) {
+    for (int ii = 0; ii < NI; ++ii) {
+      if (wcol[ii] < o && kpart[ii] == 0) {
 #pragma unroll
-        for (int r = 0; r < kTB; ++r) part[(warp * kTB + r) * o + oo] = acc[k][r];
+        for (int r = 0; r < 4; ++r) {
+          const int64_t root = root0 + moff[ii] + r;
+          if (root < r_end)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (wcol[ii] + e < o) out[root * o + wcol[ii] + e] = acc[ii][r][e];
+        }
       }
     }
-  }
-  __syncthreads();
-
-  // 3. add the warps' partial sums in a fixed order and write
-  for (int idx = threadIdx.x; idx < rows * o; idx += blockDim.x) {
-    const int r = idx / o;
-    const int oo = idx - r * o;
-    float s = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kF32Warps; ++wp) s += part[(wp * kTB + r) * o + oo];
-    out[(b0 + r) * o + oo] = s;
+    if (ks > 1) product_sync();  // the partial tiles are read before the next tile's
   }
 }
 
@@ -755,15 +1003,70 @@ extern "C" int tsg_mean_project_bf16(const void* x, const void* w, void* out, lo
 #undef TSG_LAUNCH_X
 }
 
-// f32: shared memory per block 4 * (kTB * d + kF32Warps * kTB * o) bytes; the
-// caller keeps it within the 232,448 bytes a Hopper block can have.
-extern "C" int tsg_mean_project_f32(const void* x, const void* w, void* out, long long b, int f,
-                                    int d, int o, void* stream) {
+namespace {
+
+template <int V, int NI>
+int launch_f32(const void* x, const void* w, void* out, int64_t b, int f, int d, int o,
+               int o_pad, int fb, int tb, int grid, int ms, int kw, int nwb, size_t smem,
+               cudaStream_t s) {
   static size_t done = 0;
-  const size_t smem = ((size_t)kTB * d + (size_t)kF32Warps * kTB * o) * sizeof(float);
-  if (int e = set_smem(mean_project_f32_kernel, smem, &done)) return e;
-  const unsigned blocks = (unsigned)((b + kTB - 1) / kTB);
-  mean_project_f32_kernel<<<blocks, kF32Warps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (float*)out, b, f, d, o);
+  if (int e = set_smem(mean_project_f32_kernel<V, NI>, smem, &done)) return e;
+  mean_project_f32_kernel<V, NI><<<(unsigned)grid, kF32Warps * 32, smem, s>>>(
+      (const float*)x, (const float*)w, (float*)out, b, f, d, o, o_pad, fb, tb, ms, kw, nwb);
   return (int)cudaGetLastError();
 }
+
+template <int V>
+int launch_f32_ni(const void* x, const void* w, void* out, int64_t b, int f, int d, int o,
+                  int o_pad, int fb, int tb, int grid, int ms, int kw, int nwb, int ni,
+                  size_t smem, cudaStream_t s) {
+#define TSG_LAUNCH(NI) \
+  launch_f32<V, NI>(x, w, out, b, f, d, o, o_pad, fb, tb, grid, ms, kw, nwb, smem, s)
+  switch (ni) {
+    case 1: return TSG_LAUNCH(1);
+    case 2: return TSG_LAUNCH(2);
+    case 3: return TSG_LAUNCH(3);
+    case 4: return TSG_LAUNCH(4);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TSG_LAUNCH
+}
+
+}  // namespace
+
+// f32: x (b, f, d) f32, its base 8-byte aligned for v = 2 (d even) and
+// 4-byte aligned for v = 1; w (d, o_pad) f32 with o_pad a multiple of 4, at
+// least o, and a 16-byte-aligned base; out (b, o) f32. `grid` persistent
+// blocks (at most b) take even shares of the roots in tiles of tb (a
+// multiple of 4, at most 16); fb x rows a reducer batch (1 .. 32); ms mean
+// slots (more than ceil(11 / tb)); nwb W buffers of kw rows (kw divides
+// 32 v); ni product items a product warp (1 .. 4; 4 ni >= items * ks, items
+// = (tb / 4) ceil(o_pad / 128), ks = f32_ks; 1 when K is split). smem_bytes holds the layout
+// (F32Layout above, as kernels/mean_project.py::f32_plan computes it),
+// within 232,448.
+extern "C" int tsg_mean_project_f32(const void* x, const void* w, void* out, long long b, int f,
+                                    int d, int o, int o_pad, int v, int fb, int tb, int grid,
+                                    int ms, int kw, int nwb, int ni, long long smem_bytes,
+                                    void* stream) {
+  if (v != 1 && v != 2) return (int)cudaErrorInvalidValue;
+  if (b < 1 || f < 1 || d < 1 || o < 1 || o_pad < o || o_pad % 4) return (int)cudaErrorInvalidValue;
+  if (v == 2 && d % 2) return (int)cudaErrorInvalidValue;
+  if (tb < 4 || tb % 4 || tb > 16 || ms * tb < kRedWarps + tb || nwb < 1 || kw < 1 ||
+      (32 * v) % kw || fb < 1 || fb > 32 || 8 * (2 * ms + 2 * nwb) > kF32BarBytes)
+    return (int)cudaErrorInvalidValue;
+  const int ks = f32_ks(tb, o_pad), items = (tb / 4) * ((o_pad + 127) / 128);
+  if (grid < 1 || grid > b || ni * kProdWarps < items * ks || (ks > 1 && ni != 1))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(w) & 15) || (reinterpret_cast<uintptr_t>(x) & (4 * v - 1)))
+    return (int)cudaErrorInvalidValue;
+  const F32Layout lay(32 * v, fb, tb, ms, kw, o_pad, nwb, ks);
+  if (lay.total > (size_t)smem_bytes || smem_bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const size_t smem = (size_t)smem_bytes;
+#define TSG_LAUNCH(V) \
+  launch_f32_ni<V>(x, w, out, b, f, d, o, o_pad, fb, tb, grid, ms, kw, nwb, ni, smem, s)
+  return v == 2 ? TSG_LAUNCH(2) : TSG_LAUNCH(1);
+#undef TSG_LAUNCH
+}
+
+

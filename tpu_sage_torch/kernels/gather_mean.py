@@ -19,7 +19,8 @@ XLA in the JAX package): the same pass over this rank's rows ``[lo, lo +
 m)`` of a bf16, f32 or int8 table, rows outside the range counting as zero
 rows and the divisor staying ``F``. The third entry point of
 ``csrc/gather_mean.cu``, with its counter ``OWNED_LAUNCHES`` and its plain
-version ``gather_fanout_mean_owned_reference``.
+version ``gather_fanout_mean_owned_reference``. Its kernel keeps the
+loads of owned rows in flight, skipping the ids it does not own.
 """
 
 from __future__ import annotations

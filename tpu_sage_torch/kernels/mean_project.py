@@ -15,8 +15,11 @@ accumulated in f32 and rounded once. For f32 both roundings are no-ops.
 The forward on a CUDA tensor launches ``csrc/mean_project.cu`` (bf16 W:
 persistent blocks that stage W once and walk tiles of roots, x streamed into
 shared memory with bulk asynchronous copies, or ``cp.async`` words when it
-is not 16-byte aligned, and the product on the tensor cores; f32: exact f32
-on the SIMT units); on a CPU tensor it runs ``mean_project_reference``.
+is not 16-byte aligned, and the product on the tensor cores; f32: persistent
+blocks whose warps stream x's column chunks into registers and reduce them,
+while W streams through a ring of bulk copies and the product runs in exact
+f32 on the SIMT units, chunk by chunk); on a CPU tensor it runs
+``mean_project_reference``.
 The backward is the reference's (computed outside Pallas there too), two
 plain products with ``meanx`` recomputed in W's dtype, each only when its
 input needs a gradient, ``dx`` divided in x's dtype::
@@ -43,7 +46,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tsg_mean_project_bf16": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P),
-    "tsg_mean_project_f32": (_P, _P, _P, _LL, _I, _I, _I, _P),
+    "tsg_mean_project_f32": (_P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _LL, _P),
 }
 _MAX_SMEM_BYTES = 232_448  # per-block shared memory on Hopper
 
@@ -140,10 +144,77 @@ def bf16_plan(b: int, f: int, d: int, o: int, x_ptr: int, x_bytes: int = 2,
     raise ValueError(f"mean_project bf16 kernel: D={d}, O={o} do not fit in shared memory")
 
 
-def f32_smem_bytes(d: int, o: int) -> int:
-    """Shared memory of the f32 kernel's block: the f32 (4, D) mean tile and
-    8 warps' f32 (4, O) partial products."""
-    return 4 * (4 * d + 8 * 4 * o)
+# the f32 kernel's compile-time shape (csrc/mean_project.cu): 16 warps, one
+# producer of W, 4 product warps, 11 reducer warps; the rings' barriers; the
+# K split's partial tiles
+_F32_PROD, _F32_RED, _F32_BAR_BYTES, _F32_RED_BYTES = 4, 11, 512, 4 * 32 * 16 * 4
+_F32_MAX_NI = 4  # product items a product warp: (4 roots, 128 columns) each
+# roots a tile at most: at 6,144 roots (47 a block) tiles of 16 streamed x
+# faster than one tile of 48 on the H100 (PERF.md)
+_F32_MAX_TB = 16
+# Shared memory the f32 kernel keeps within where x paces it: 196 KB, the
+# largest carve-out below the maximum, leaves the L1 some 60 KB for the
+# lines of x's 8-byte cp.async copies in flight; at 6,144 roots blocks
+# above it ran 8-20 % slower on the H100, while at 512 roots, where W's
+# stream paces a 4-root tile, a W ring twice as deep beyond it was 8 %
+# faster (PERF.md)
+_F32_L1_SMEM_BYTES = 196 * 1024
+_F32_MAX_O = _F32_PROD * _F32_MAX_NI * 128  # one 4-root group's items at most
+
+
+def f32_plan(b: int, f: int, d: int, o: int, x_ptr: int, n_sm: int = 132) -> dict:
+    """Launch shape of the f32 kernel for ``x (b, f, d)`` f32 at address
+    ``x_ptr`` and an f32 ``W (d, o)`` on a card of ``n_sm`` SMs: the
+    persistent ``grid`` (``min(b, n_sm)`` blocks, each an even share of the
+    roots), the roots per tile ``tb`` (a multiple of 4, at most 16: the
+    largest share rounded up while the product's items of 4 roots and 128
+    columns fit the 4 product warps, so a block owns one tile at the main
+    path's 512 roots and three at the NCE step's 6,144), the x word ``v`` (2: float2,
+    when ``d`` is even and x 8-byte aligned; else 1) and chunk width ``kc =
+    32 v``, the x rows ``fb`` of a reducer's batch (``min(f, 32)``, fewer
+    only where shared memory runs short), W's columns padded to a multiple of
+    4 ``o_pad``, the K split ``ks`` (4 or 2 when there are 1 or 2 items, so
+    every product warp works) and ``ni`` items a product warp, ``ms`` mean
+    slots (enough that the 11 reducer warps never wait on a slot two uses
+    back), the W ring of ``nwb`` buffers of ``kw`` rows (the most bytes,
+    then the longest blocks, that keep the block within 196 KB, or failing
+    that within the maximum; the maximum at once where a tile streams fewer
+    x rows than W has columns) and the shared memory. A pure function of
+    its arguments; raises for what the kernel does not take."""
+    if b < 1 or f < 1 or d < 1 or o < 1:
+        raise ValueError(f"mean_project f32 kernel needs B, F, D, O >= 1, got {(b, f, d, o)}")
+    if o > _F32_MAX_O:
+        raise ValueError(f"mean_project f32 kernel takes O <= {_F32_MAX_O}, got O={o}")
+    if x_ptr % 4:
+        raise ValueError("mean_project f32 kernel needs x 4-byte aligned")
+    v = 2 if d % 2 == 0 and x_ptr % 8 == 0 else 1
+    kc = 32 * v
+    o_pad = _ceil(o, 4)
+    ncg = -(-o_pad // 128)  # 128-column groups of the output
+    grid = min(b, n_sm)
+    tb = min(_ceil(-(-b // grid), 4), 4 * (_F32_PROD * _F32_MAX_NI // ncg), _F32_MAX_TB)
+    items = (tb // 4) * ncg
+    ks = 1 if items >= _F32_PROD else _F32_PROD // items
+    ni = -(-items * ks // _F32_PROD)
+    ms = -(-_F32_RED // tb) + 1
+    mean_bytes = ms * tb * kc * 4
+    red_bytes = _F32_RED_BYTES if ks > 1 else 0
+    # a tile that streams fewer x rows than W has columns (B = 512: 100
+    # rows against 128) is W's to pace: its W ring takes all the room
+    limits = (_MAX_SMEM_BYTES,) if tb * f < o_pad else (_F32_L1_SMEM_BYTES, _MAX_SMEM_BYTES)
+    for limit in limits:
+        for fb in sorted({min(f, 32), 16, 8, 4, 2, 1}, reverse=True):
+            if fb > min(f, 32):
+                continue
+            fixed = _F32_BAR_BYTES + _F32_RED * 2 * fb * kc * 4 + mean_bytes + red_bytes
+            # the W ring: the most bytes in flight, then the longest blocks
+            rings = [(nwb * kw, kw, nwb) for kw in (kc >> s for s in range(kc.bit_length()))
+                     for nwb in (4, 3, 2) if fixed + nwb * kw * o_pad * 4 <= limit]
+            if rings:
+                _, kw, nwb = max(rings)
+                return dict(v=v, kc=kc, fb=fb, o_pad=o_pad, tb=tb, grid=grid, ks=ks, ni=ni,
+                            ms=ms, kw=kw, nwb=nwb, smem=fixed + nwb * kw * o_pad * 4)
+    raise ValueError(f"mean_project f32 kernel: O={o} does not fit in shared memory")
 
 
 def mean_project_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -172,15 +243,16 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     o = w.shape[1]
     lib = library("mean_project", _SIGNATURES)
     if w.dtype == torch.float32:
-        if f32_smem_bytes(d, o) > _MAX_SMEM_BYTES:
-            raise ValueError(f"mean_project f32 kernel: D={d}, O={o} need "
-                             f"{f32_smem_bytes(d, o)} bytes of shared memory, more than "
-                             f"{_MAX_SMEM_BYTES}")
         out = torch.empty((b, o), dtype=x.dtype, device=x.device)
         if out.numel() == 0:
             return out
+        plan = f32_plan(b, f, d, o, x.data_ptr(), _sm_count(x.device))
+        if plan["o_pad"] != o or w.data_ptr() % 16:
+            # the kernel copies W rows of o_pad columns from a 16-byte-aligned base
+            w = torch.nn.functional.pad(w, (0, plan["o_pad"] - o))
         launch(lib.tsg_mean_project_f32, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o,
-               device=x.device)
+               plan["o_pad"], plan["v"], plan["fb"], plan["tb"], plan["grid"], plan["ms"],
+               plan["kw"], plan["nwb"], plan["ni"], plan["smem"], device=x.device)
         LAUNCHES += 1
         return out
     if b == 0 or o == 0:
