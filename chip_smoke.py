@@ -8,14 +8,15 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the nine kernels from
+2. build: compiles the CUDA sources of the eleven kernels from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
    shapes its path gives it (both fused sampler hops, the feature gathers,
    deepest fanout mean, both layers' mean + projection and one at an x
    offset by 4 bytes, forward and backward; the packed sampler's gathers and
-   selects; the degree and adjacency gathers the hops used to launch), and
+   its picks, ``select_hop`` beside the bare ``select_columns``; the degree
+   and adjacency gathers the hops used to launch), and
    the ``gather_rows_blockspec`` foil at the six gather shapes, and times
    kernel, plain version and one PyTorch library call with CUDA events,
    L2-cold (``tpu_sage_torch.bench.timing``), and ``gather_rows`` at exact
@@ -28,7 +29,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    602-byte rows, PPI-shaped 200-byte f32 rows and 1,024-byte f32 rows);
    then edge cases (every realignment shift of ``gather_rows``, 2- and
    4-byte, out-of-range ids, degree 0; the persistent ``mean_project``'s
-   ragged last tile, x 4 and 8 bytes off alignment and W ring; the f32-W
+   ragged last tile, x 4 and 8 bytes off alignment and W ring; ``select_hop``
+   at degree 0 with and without ids, columns out of range, the pair view's
+   shift, strided and offset rows and ragged B; the f32-W
    ``mean_project`` at ragged B, odd D, O = 41 and 100, x and W off
    alignment, F = 40, and its mean bitwise; the owner-masked fanout mean
    bitwise at roots with no owned id, owned -0.0 rows, ids at both ends of
@@ -85,9 +88,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    (``gather_fanout_mean_int8``, both modes, bf16 and f32 out, at 12,800
    roots × F = 10 × 602) and the CSR hop (``sample_hop_csr``, both hops on
    ``bench_store``'s CSR and on a Reddit-shaped SBM store's) bitwise against
-   their plain versions and timed; the reference's window-pair composition
+   their plain versions and timed, and the same trees in one ``csr_tree``
+   launch, bitwise the hops and timed; the reference's window-pair composition
    (``gather_rows`` and ``select_columns``) bitwise the fused CSR hop;
-   fanouts above 32, degree-0 and tail rows, ids out of range; CSR trees
+   fanouts above 32, degree-0 and tail rows, ids out of range; ``csr_tree``
+   at its edges (degree 0, ids out of range, indices with and without window
+   padding, ragged B, trees of 1-5 hops, walks of 1-4 and 6 hops); CSR trees
    bitwise the dense tree at full width for one generator state; the main
    path's configuration for 20 steps with ``feature_int8``, CSR and both,
    launches per step exact; the int8 model's sampled logits card against
@@ -97,7 +103,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``--feature-int8 --csr-adjacency`` for one epoch at 232,965 nodes;
 9. unsupervised training and the fused first layer: the kernels at the
    NCE tree's shapes (512 · (2 + 10) = 6,144 roots: the walk hop 512 × 1,
-   dense and CSR; the tree's hops 6,144 × 25 and 153,600 × 10; its levels'
+   dense and CSR; the CSR walk and the CSR NCE tree in one ``csr_tree``
+   launch each; the tree's hops 6,144 × 25 and 153,600 × 10; its levels'
    gathers; the deepest fanout mean over 153,600 roots × 10 × 602;
    ``mean_project`` at (6,144, 25, 602) and (6,144, 25, 256); the corpus
    rows) and at the fused first layer's (the projected 232,965 × 128 table's
@@ -120,8 +127,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    at 4 owners' shapes (the owner-masked fanout mean over the deepest
    level's 256,000 ids for each owner, bf16 and int8, bitwise against its
    plain version, the partials' sum against one fanout mean; an owner's
-   ``gather_rows(oob="zero")`` answers to 4·q ids; ``select_columns`` on the
-   exchanged rows) and the world-1 launch, timed; (c) at world 1 (an NCCL
+   ``gather_rows(oob="zero")`` answers to 4·q ids; ``select_hop`` and the
+   bare ``select_columns`` on the exchanged rows, ``select_hop`` on the CSR
+   pair view's rows and at the owner) and the world-1 launch, timed; (c) at world 1 (an NCCL
    group of one rank in this process) one partitioned step's loss and
    gradients against the single-device step on the same levels; (b) one
    spawned NCCL rank per visible card runs DIST_STEPS steps each of the
@@ -136,7 +144,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    its new shapes (the owner-masked fanout mean over the partitioned NCE
    step's 1,536,000 deepest ids at world 1 and as owner 1 of a (2, 2)
    layout; an owner's ``gather_rows(oob="zero")`` answers to a (2, 2)
-   layout's ``(C, H, q)`` NCE level-1 ids; ``mean_project`` on the two
+   layout's ``(C, H, q)`` NCE level-1 ids; ``select_hop`` at the
+   partitioned NCE step's walk hop and tree hops; ``mean_project`` on the two
    column slices of a model axis of 2, whose concatenation equals the whole
    product), timed; (b) at world 1 in this process: a partitioned NCE step
    against the single-device NCE step, a hier2d step at (1, 1) bitwise
@@ -281,13 +290,20 @@ SOURCES = {
                                  "tpu_sage/kernels/gather_mean.py:93 with the owner mask of "
                                  "tpu_sage/dist/halo.py:229-240 (dist_gather_fanout_mean, "
                                  "XLA in JAX)"),
+    "select_hop": ("tpu_sage_torch/kernels/csrc/select.cu",
+                   "tpu_sage/kernels/select.py:29 with the column arithmetic of "
+                   "tpu_sage/dist/train.py:587-608, tpu_sage/dist/halo.py:135-180 and "
+                   "tpu_sage/sample/sampler.py:111-132"),
+    "csr_tree": ("tpu_sage_torch/kernels/csrc/select.cu",
+                 "tpu_sage/kernels/select.py:29 in every hop of tpu_sage/sample/csr.py:178 "
+                 "(sample_tree_csr) and of the CSR walk of tpu_sage/train/unsupervised.py:54"),
 }
 
 
 def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=False):
     """Kernel launches of one training step (``encode`` with the fused
-    sampler): 2 hops (``sample_hop``, or ``sample_hop_csr`` on CSR
-    adjacency); the levels' gathers (of int8 rows on an int8 table), the
+    sampler): 2 hops (``sample_hop``, or on CSR adjacency the whole tree in
+    one ``csr_tree``); the levels' gathers (of int8 rows on an int8 table), the
     deepest level summarised by ``gather_fanout_mean`` (its int8 entry on an
     int8 table) when it is fused under mean or gcn (else gathered whole,
     fused or not); ``mean_project`` for each mean pairing of an unreduced
@@ -297,20 +313,20 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=Fa
     projected table, its two neighbor levels' fanout means there, the four
     levels' raw rows gathered in its backward, and layer 2's one
     ``mean_project``."""
-    hops = {"sample_hop": 0 if csr else 2, "sample_hop_csr": 2 if csr else 0}
+    hops = {"sample_hop": 0 if csr else 2, "sample_hop_csr": 0, "csr_tree": int(csr),
+            "select_columns": 0, "select_hop": 0}
     if fuse_first and agg == "mean" and prep == "identity":
-        return {"select_columns": 0, "gather_rows": 6, "gather_rows_blockspec": 0,
+        return {"gather_rows": 6, "gather_rows_blockspec": 0,
                 "gather_fanout_mean": 2, "mean_project": 1, "gather_fanout_mean_int8": 0,
                 "gather_fanout_mean_owned": 0, **hops}
     fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
     summary_kernel = fused and agg in ("mean", "gcn")
     mean_project = 0 if agg != "mean" else 2 if fused else 3
-    return {"select_columns": 0, "sample_hop": 0 if csr else 2,
-            "gather_rows": 2 if summary_kernel else 3, "gather_rows_blockspec": 0,
+    return {"gather_rows": 2 if summary_kernel else 3, "gather_rows_blockspec": 0,
             "gather_fanout_mean": int(summary_kernel and not int8),
             "mean_project": mean_project,
             "gather_fanout_mean_int8": int(summary_kernel and int8),
-            "sample_hop_csr": 2 if csr else 0, "gather_fanout_mean_owned": 0}
+            "gather_fanout_mean_owned": 0, **hops}
 
 
 def dist_per_step(mode, world):
@@ -318,8 +334,9 @@ def dist_per_step(mode, world):
     ``world`` ranks: per exchange, the owner's answers (``gather_rows``;
     the ring fills once per rank it passes, the bucketed exchange gathers
     the local rows, the owner's answers and the returned slots); the two
-    hops' column picks (``select_columns``; on CSR shards at the owner,
-    after four gathers each: degrees, indptr, the window pair); the deepest
+    hops' column picks with their arithmetic (``select_hop``; on CSR shards
+    at the owner, after four gathers each: degrees, indptr, the window
+    pair); the deepest
     level's pre-reduced means at the owner (``gather_fanout_mean_owned``,
     once per rank a ring passes; bucketed routing gathers the rows and
     means them at the requester); ``mean_project`` for the two unreduced
@@ -328,9 +345,10 @@ def dist_per_step(mode, world):
            "int8": 1, "hier2d": 1}[mode]
     hops = 8 if mode == "csr" else 2 * per
     deepest_rows = per if mode == "bucketed" else 0
-    return {"select_columns": 2, "sample_hop": 0, "gather_rows": hops + 2 * per + deepest_rows,
+    return {"select_columns": 0, "select_hop": 2, "sample_hop": 0,
+            "gather_rows": hops + 2 * per + deepest_rows,
             "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
-            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0,
+            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
             "gather_fanout_mean_owned": 0 if mode == "bucketed" else per}
 
 
@@ -420,16 +438,30 @@ def phase_kernels(torch, np, graph, levels, peaks):
             4 * ids.shape[0] + 32 * distinct(ids64 // 8) + 32 * adj_sectors + 8 * u.numel())
         hops.append((ids, u))
 
-    # select: the packed sampler's two hops (the kernel's only path), on the
-    # adjacency part of the gathered adjacency ‖ degree rows, a view with a
-    # row stride of max_degree + 1
+    # the packed sampler's two hops on the gathered adjacency ‖ degree rows
+    # (the adjacency part a view with a row stride of max_degree + 1):
+    # select_hop (the packed hop's launch: the column arithmetic, the pick)
+    # and the bare select_columns it replaced there (the columns
+    # precomputed), at the same rows. Bytes of select_hop: u, the distinct
+    # 32-byte sectors of the picks and of the degree words, out; of
+    # select_columns: the picks' sectors, cols and out. The library
+    # yardstick is one torch.gather with the columns precomputed.
     packed = pack_adjacency(adj, deg)
     for ids, u in hops:
-        rows = packed[ids.long()][:, :-1]
+        full = packed[ids.long()]
+        rows, r_deg = full[:, :-1], full[:, -1]
         cols = sample_hop.hop_columns(u, deg[ids.long()].clamp_min(1)).contiguous()
         cols64 = cols.long()
-        sectors = distinct(
-            (torch.arange(rows.shape[0], device="cuda")[:, None] * rows.stride(0) + cols64) // 8)
+        base = torch.arange(rows.shape[0], device="cuda")[:, None] * rows.stride(0)
+        pick_words = (base + cols64).reshape(-1)
+        sectors = distinct(pick_words // 8)
+        add("select_hop", f"packed rows int32 {tuple(rows.shape)} (row stride "
+            f"{rows.stride(0)}), degree column, u {tuple(u.shape)}",
+            lambda r=rows, d_=r_deg, u=u: select.select_hop(r, d_, u),
+            lambda r=rows, d_=r_deg, u=u: select.select_hop_reference(r, d_, u),
+            lambda r=rows, c=cols64: torch.gather(r, 1, c),
+            32 * distinct(torch.cat([pick_words, base[:, 0] + rows.shape[1]]) // 8)
+            + 8 * u.numel())
         add("select_columns", f"rows int32 {tuple(rows.shape)} (row stride {rows.stride(0)}), "
             f"cols {tuple(cols.shape)}",
             lambda r=rows, c=cols: select.select_columns(r, c),
@@ -529,6 +561,7 @@ def phase_kernels(torch, np, graph, levels, peaks):
         raise AssertionError("gather_rows_blockspec differs on out-of-range ids")
     check_gather_shifts(torch, gather, gen)
     check_sample_hop_edges(torch, sample_hop, gen)
+    check_select_hop_edges(torch, select, gen)
     rows = adj[l0.long()]
     cols_oob = torch.randint(-3, rows.shape[1] + 3, (rows.shape[0], 25), generator=gen,
                              device="cuda", dtype=torch.int32)
@@ -565,7 +598,7 @@ def phase_kernels(torch, np, graph, levels, peaks):
     torch.cuda.synchronize()
     log("  out-of-range ids/cols, every gather_rows realignment shift (bf16, f32, int8; 2- and "
         "4-byte; 8, 16 and 32 lanes a row; 16-byte words 2 a lane), sample_hop at degree 0 and "
-        "u near 1, f32 fanout mean (bitwise), ragged mean_project with a W ring, persistent "
+        "u near 1, select_hop's edge cases (bitwise), f32 fanout mean (bitwise), ragged mean_project with a W ring, persistent "
         "mean_project tiles (ragged, x 4 and 8 B off, W ring), the f32-W mean_project's "
         "ragged cases and its mean bitwise, the owner-masked mean's edge cases (bitwise), "
         "mean_project backward (bf16, f32): ok")
@@ -771,7 +804,8 @@ def check_owned_edges(torch, gather_mean, gen):
 
 def kernel_case(kernel, case, kernel_fn, plain_fn, library_fn, nbytes, flops=0.0, peak=1.0,
                 tol=None, weight=1, floor_bytes=None):
-    """One timed case of ``kernel``: ``tol`` None asks for a bitwise match;
+    """One timed case of ``kernel``: ``library_fn`` None where no one PyTorch
+    call computes the same function; ``tol`` None asks for a bitwise match;
     ``weight`` is its launches in one training step of the main path;
     ``floor_bytes``, where the bound counts distinct rows that only an
     order-changing design could read once, the bytes of reading every id's
@@ -804,7 +838,7 @@ def time_cases(torch, cases, bw):
                                        atol=atol_of_scale * ref.float().abs().max().item())
         ms = cuda_ms(c["kernel_fn"])
         plain_ms = cuda_ms(c["plain_fn"])
-        library_ms = cuda_ms(c["library_fn"])
+        library_ms = None if c["library_fn"] is None else cuda_ms(c["library_fn"])
         bound_bytes = c["bytes"] / bw * 1e3
         bound_ops = c["flops"] / c["peak"] * 1e3
         res = dict(kernel=c["kernel"], case=c["case"], weight=c["weight"],
@@ -818,8 +852,9 @@ def time_cases(torch, cases, bw):
             floor = (f"  no-reuse floor {res['no_reuse_floor_ms']:.4f} "
                      f"({res['no_reuse_floor_ms'] / ms:.0%})")
         results.append(res)
+        library = "none" if library_ms is None else f"{library_ms:.4f}"
         log(f"  {c['kernel']:<19} {c['case']:<52} err {err:.3g}  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f}  library {library_ms:.4f}  bound {res['bound_ms']:.4f} "
+            f"plain {plain_ms:.4f}  library {library}  bound {res['bound_ms']:.4f} "
             f"({res['bound_by']}){floor}")
     return results
 
@@ -885,11 +920,50 @@ def check_sample_hop_edges(torch, sample_hop, gen):
         raise AssertionError("sample_hop differs from its plain version at its edge cases")
 
 
+def check_select_hop_edges(torch, select, gen):
+    """select_hop bitwise against its plain version where no path's rows go:
+    degree 0 with and without ids (the self-loop, or column 0), degrees
+    above the row width and negative, columns out of range both ways, the
+    pair view's shift (negative, past the row, near 2^31 where the int32 sum
+    wraps), rows as strided and offset views with the degree and shift
+    columns read in place or as tensors of their own, u at 0 and one ulp
+    below 1, ragged B (one row, 37 rows, 4,097 rows) and K = 1."""
+    n, d = 5000, 40
+    table = torch.randint(-3, n, (n, d + 7), generator=gen, device="cuda", dtype=torch.int32)
+    table[:, d + 1] = torch.randint(-2, d + 12, (n,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+    table[::13, d + 1] = 0
+    table[:, d] = torch.randint(-6, 2 * d, (n,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+    table[::29, d] = 2**31 - 3
+    for b, k in ((1, 10), (37, 25), (4097, 10), (4097, 1)):
+        ids = torch.randint(-n, 2 * n, (b,), generator=gen, device="cuda", dtype=torch.int32)
+        full = table[torch.randint(0, n, (b,), generator=gen, device="cuda")]
+        off = torch.empty((b, d + 9), dtype=torch.int32, device="cuda")[:, 2:]
+        off.copy_(full)  # rows 8 bytes past the allocation's start, row stride d + 9
+        u = torch.rand((b, k), generator=gen, device="cuda")
+        u[:, 0] = 0.0
+        if k > 1:
+            u[:, 1] = 1.0 - 2.0 ** -24
+        for rows in (full, off):
+            view, r_deg, shift = rows[:, :d], rows[:, d + 1], rows[:, d]
+            for sh in (None, shift, shift.clone()):
+                for i in (None, ids):
+                    for dg in (r_deg, r_deg.clone()):
+                        got = select.select_hop(view, dg, u, shift=sh, ids=i)
+                        want = select.select_hop_reference(view, dg, u, shift=sh, ids=i)
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"select_hop differs from its plain version: B {b}, K {k}, "
+                                f"row stride {rows.stride(0)}, shift {sh is not None}, ids "
+                                f"{i is not None}")
+
+
 def check_packed_sampler(torch, graph, roots):
     """sample_tree_packed at full width against sample_tree with the same
     per-hop uniforms, bitwise, each with its own launch counts: the fused
     hop launches sample_hop once per hop; the packed hop one gather_rows of
-    516-byte rows and one select_columns."""
+    516-byte rows and one select_hop."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.sample.sampler import pack_adjacency, sample_tree, sample_tree_packed
 
@@ -908,7 +982,7 @@ def check_packed_sampler(torch, graph, roots):
         counts.append(kernels.launch_counts())
     hops = len(FANOUTS)
     if counts != [{**want, "sample_hop": hops},
-                  {**want, "gather_rows": hops, "select_columns": hops}]:
+                  {**want, "gather_rows": hops, "select_hop": hops}]:
         raise AssertionError(f"sampler launch counts {counts}")
     for level, (a, b) in enumerate(zip(*trees)):
         if not torch.equal(a, b):
@@ -1646,7 +1720,13 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
     # indices the trainer uploads). Bytes: the ids, each distinct 32-byte
     # sector of degrees and of indptr, the distinct 32-byte sectors of
     # indices the picks hit, u and out. The library yardstick is one indexed
-    # load with the columns and the degree-0 select precomputed.
+    # load with the columns and the degree-0 select precomputed. Then the
+    # same tree in one csr_tree launch (the CSR step's sampler), from the
+    # same uniforms, bitwise the hops' levels; its bytes are the hops' but
+    # for the levels the hops wrote and read back (only the roots are read);
+    # no one PyTorch call computes a tree, so it has no library yardstick.
+    # The timed call returns the launch's deepest level as it is (every
+    # level is held bitwise against the hops first).
     window_counts = {}
     for label, prob, roots, weight in (("bench_store", problem, levels[0], 1),
                                        ("Reddit-shaped SBM", sbm, None, 0)):
@@ -1654,7 +1734,7 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
         if roots is None:
             roots = torch.as_tensor(prob.folds["train"][:BATCH], dtype=torch.int32,
                                     device="cuda")
-        ids = roots
+        ids, us, hop_levels, tree_bytes = roots, [], [], 4 * roots.shape[0]
         for hop, fo in enumerate(FANOUTS):
             u = torch.rand((ids.shape[0], fo), generator=gen, device="cuda")
             ids64 = ids.long()
@@ -1664,6 +1744,8 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
             live = (deg > 0)[:, None].expand_as(pos)
             nbytes = (4 * ids.shape[0] + 2 * 32 * distinct(ids64 // 8)
                       + 32 * distinct(pos[live] // 8) + 8 * u.numel())
+            tree_bytes += nbytes - 4 * ids.shape[0]
+            us.append(u)
             cases.append(kernel_case(
                 "sample_hop_csr", f"{label} hop {hop + 1}: ids ({ids.shape[0]},), u "
                 f"{tuple(u.shape)}, indices ({g.indices.shape[0]},), window {g.window}",
@@ -1684,6 +1766,18 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
                 raise AssertionError(f"{label} hop {hop + 1}: the window-pair composition "
                                      f"differs from the fused CSR hop")
             ids = fused.reshape(-1)
+            hop_levels.append(ids)
+        tree = sample_hop.csr_tree(g.indptr, g.indices, g.degrees, roots, us)
+        if not all(torch.equal(a, b) for a, b in zip(tree, hop_levels)):
+            raise AssertionError(f"{label}: the one-launch CSR tree differs from its hops")
+        cases.append(kernel_case(
+            "csr_tree", f"{label} tree: roots ({roots.shape[0]},), fanouts {FANOUTS}, indices "
+            f"({g.indices.shape[0]},), window {g.window}",
+            lambda r=roots, us=us, g=g: sample_hop.csr_tree(
+                g.indptr, g.indices, g.degrees, r, us)[-1],
+            lambda r=roots, us=us, g=g: sample_hop.csr_tree_reference(
+                g.indptr, g.indices, g.degrees, r, us)[-1],
+            None, tree_bytes, weight=weight))
     results = time_cases(torch, cases, bw)
 
     # edge cases: fanouts above 32 (both fanout means), CSR rows of degree 0
@@ -1718,11 +1812,48 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
     if not torch.equal(sample_hop.sample_hop_csr(indptr, indices, deg, ids, u),
                        sample_hop.sample_hop_csr_reference(indptr, indices, deg, ids, u)):
         raise AssertionError("sample_hop_csr differs from its plain version at its edge cases")
+    check_csr_tree_edges(torch, sample_hop, gen, indptr, indices, deg, ids)
     torch.cuda.synchronize()
-    log("  fanouts 33 and 40 (both fanout means, bitwise), the CSR hop at degree 0, tail "
-        "rows without window padding, ids out of range, u at 0 and one ulp below 1: ok; "
+    log("  fanouts 33 and 40 (both fanout means, bitwise), the CSR hop and the CSR tree at "
+        "degree 0, tail rows with and without window padding, ids out of range, u at 0 and "
+        "one ulp below 1, ragged B, trees of 1-5 hops and walks of 1-4 and 6: ok; "
         f"window-pair composition bitwise the fused CSR hop, launches {window_counts}")
     return results, window_counts
+
+
+def check_csr_tree_edges(torch, sample_hop, gen, indptr, indices, deg, ids):
+    """csr_tree bitwise against its plain version where no path's trees go,
+    on a CSR graph whose degrees are 0-128 (every 97th and the last three
+    0: the tail's row start is nnz): indices without window padding (the
+    last row ends at n_indices) and with it, roots out of range and negative
+    (their self-loop keeps them), u at 0 and one ulp below 1, ragged B (1,
+    37 and 4,096 roots), trees of 1, 2 and 5 hops (a deeper tree launches
+    again from its fourth level), walks (fanout 1) of 1-4 and 6 hops with
+    only the last level kept; each with its launches counted."""
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.sample.csr import pad_indices_for_window
+
+    padded = torch.as_tensor(pad_indices_for_window(indices.cpu().numpy(), 128), device="cuda")
+    for idx in (indices, padded):
+        for roots, fanouts, last in ((ids, (25, 10), False), (ids[:37], (10,), False),
+                                     (ids[:1], (3, 2, 2, 2, 2), False),
+                                     (ids[:37], (3, 2, 2, 2, 2), True),
+                                     *((ids, (1,) * h, True) for h in (1, 2, 3, 4, 6))):
+            us, q = [], roots.shape[0]
+            for f in fanouts:
+                u = torch.rand((q, f), generator=gen, device="cuda")
+                u[: q // 7, 0], u[q // 7: 2 * q // 7, 0] = 0.0, 1.0 - 2.0 ** -24
+                us.append(u)
+                q *= f
+            kernels.reset_launch_counts()
+            got = sample_hop.csr_tree(indptr, idx, deg, roots, us, last_only=last)
+            launches = kernels.launch_counts()["csr_tree"]
+            want = sample_hop.csr_tree_reference(indptr, idx, deg, roots, us, last_only=last)
+            if (len(got) != len(want) or not all(torch.equal(a, b) for a, b in zip(got, want))
+                    or launches != -(-len(fanouts) // sample_hop.TREE_HOPS)):
+                raise AssertionError(f"csr_tree differs from its plain version: roots "
+                                     f"{roots.shape[0]}, fanouts {fanouts}, last only {last}, "
+                                     f"indices ({idx.shape[0]},), {launches} launches")
 
 
 def check_storage_trees(torch, problem, sbm):
@@ -1747,7 +1878,7 @@ def check_storage_trees(torch, problem, sbm):
             torch.cuda.synchronize()
             csr_graph.window = saved
             counts.append({k: v for k, v in kernels.launch_counts().items() if v})
-        if counts != [{"sample_hop": 2}, {"sample_hop_csr": 2}, {"sample_hop_csr": 2}]:
+        if counts != [{"sample_hop": 2}, {"csr_tree": 1}, {"csr_tree": 1}]:
             raise AssertionError(f"{label}: tree launch counts {counts}")
         for t in trees[1:]:
             for level, (a, b) in enumerate(zip(trees[0], t)):
@@ -1862,7 +1993,7 @@ def storage_cli(torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    if not (counts["gather_fanout_mean_int8"] > 0 and counts["sample_hop_csr"] > 0
+    if not (counts["gather_fanout_mean_int8"] > 0 and counts["csr_tree"] > 0
             and counts["gather_fanout_mean"] == 0 and counts["sample_hop"] == 0):
         raise AssertionError(f"CLI --feature-int8 --csr-adjacency launches {counts}")
     log(f"  CLI --feature-int8 --csr-adjacency, 1 epoch at {SERVING_NODES} nodes in "
@@ -1904,14 +2035,16 @@ def phase_storage(torch, np, problem, graph, levels, sbm, smi, peaks):
 def unsup_per_step(csr=False, corpus=False):
     """Kernel launches of one NCE step at phase 9's configuration: the walk's
     WALK_LENGTH hops at fanout 1 (none with a corpus) and the tree's 2 hops
-    (``sample_hop``, or ``sample_hop_csr`` on CSR adjacency); the tree's
-    levels 0 and 1 gathered and the corpus rows (``gather_rows``); the
-    deepest level's ``gather_fanout_mean``; 2 ``mean_project``."""
+    (``sample_hop``; on CSR adjacency one ``csr_tree`` for the walk and one
+    for the tree); the tree's levels 0 and 1 gathered and the corpus rows
+    (``gather_rows``); the deepest level's ``gather_fanout_mean``; 2
+    ``mean_project``."""
     hops = 2 + (0 if corpus else WALK_LENGTH)
-    return {"select_columns": 0, "sample_hop": 0 if csr else hops,
+    return {"select_columns": 0, "select_hop": 0, "sample_hop": 0 if csr else hops,
             "gather_rows": 2 + int(corpus), "gather_rows_blockspec": 0,
             "gather_fanout_mean": 1, "mean_project": 2, "gather_fanout_mean_int8": 0,
-            "sample_hop_csr": hops if csr else 0, "gather_fanout_mean_owned": 0}
+            "sample_hop_csr": 0, "csr_tree": (1 + int(not corpus)) if csr else 0,
+            "gather_fanout_mean_owned": 0}
 
 
 def unsup_config(**kw):
@@ -1929,7 +2062,8 @@ def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
     their plain versions (bitwise; ``mean_project`` within
     MEAN_PROJECT_TOL) and timed (weight 0: off the main path's step). The
     NCE tree of 512 · (2 + 10) = 6,144 roots: the walk hop (512 × 1, dense
-    and CSR), the tree's hops (6,144 × 25; 153,600 × 10), its levels 0 and 1
+    and CSR), the CSR walk and the CSR NCE tree each in one ``csr_tree``
+    launch, the tree's hops (6,144 × 25; 153,600 × 10), its levels 0 and 1
     gathered (6,144 and 153,600 rows of 1,204 bytes), the deepest fanout
     mean (153,600 roots × 10 × 602) and both layers' ``mean_project``
     ((6,144, 25, 602), (6,144, 25, 256)); the corpus rows (int32, 512 × 16);
@@ -1987,6 +2121,38 @@ def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
         + 8 * u.numel(), weight=0))
     roots = torch.randint(0, n, (BATCH * (2 + N_NEGATIVES),), generator=gen, device="cuda",
                           dtype=torch.int32)
+    # the CSR step's two sampler launches: the walk (WALK_LENGTH hops from
+    # 512 anchors, only the last level kept) and the NCE tree (6,144 roots,
+    # fanouts (25, 10)), one csr_tree each. Bytes: the roots, every hop's u,
+    # the distinct 32-byte sectors of degrees and indptr a hop's frontier
+    # reads and of indices its picks hit, the kept levels written.
+    for label, r_ids, fos, last in (("walk", anchors, (1,) * WALK_LENGTH, True),
+                                    ("NCE tree", roots, FANOUTS, False)):
+        us, cur, nbytes, hop_levels = [], r_ids, 4 * r_ids.shape[0], []
+        for hop, fo in enumerate(fos):
+            uh = torch.rand((cur.shape[0], fo), generator=gen, device="cuda")
+            c64 = cur.long()
+            dg = g.degrees[c64]
+            picks = g.indptr[c64].long()[:, None] + sample_hop.hop_columns(
+                uh, dg.clamp_min(1)).long()
+            live = (dg > 0)[:, None].expand_as(picks)
+            nbytes += (2 * 32 * distinct(c64 // 8) + 32 * distinct(picks[live] // 8)
+                       + 4 * uh.numel() * (1 + int(not last or hop == len(fos) - 1)))
+            cur = sample_hop.sample_hop_csr(g.indptr, g.indices, g.degrees, cur, uh).reshape(-1)
+            hop_levels.append(cur)
+            us.append(uh)
+        got = sample_hop.csr_tree(g.indptr, g.indices, g.degrees, r_ids, us, last_only=last)
+        if not all(torch.equal(a, b) for a, b in zip(got, hop_levels[-1:] if last
+                                                     else hop_levels)):
+            raise AssertionError(f"the CSR {label} in one launch differs from its hops")
+        cases.append(kernel_case(
+            "csr_tree", f"CSR {label}: roots ({r_ids.shape[0]},), fanouts {fos}, last level "
+            f"only {last}, indices ({g.indices.shape[0]},), window {g.window}",
+            lambda r=r_ids, us=us, last=last: sample_hop.csr_tree(
+                g.indptr, g.indices, g.degrees, r, us, last_only=last)[-1],
+            lambda r=r_ids, us=us, last=last: sample_hop.csr_tree_reference(
+                g.indptr, g.indices, g.degrees, r, us, last_only=last)[-1],
+            None, nbytes, weight=0))
     tree = sample_tree(adj, deg, roots, FANOUTS, generator=gen)
     add_hop("NCE tree hop 1", tree[0], FANOUTS[0])
     add_hop("NCE tree hop 2", tree[1], FANOUTS[1])
@@ -2341,10 +2507,13 @@ def dist_kernel_cases(torch, graph, peaks):
     roots x 10) for each owner, bitwise against its plain version, the 4
     partials' sum against the single-device gather_fanout_mean, again on an
     int8 table; gather_rows(oob="zero") as an owner answers 4*q ids (level
-    1's features, hop 2's adjacency || degree rows); select_columns at the
-    exchanged rows' shape. The world-1 step's own launch (the whole table
-    as one owner) is the case that counts into the kernels line."""
-    from tpu_sage_torch.kernels import gather, gather_mean, select
+    1's features, hop 2's adjacency || degree rows); select_hop and the bare
+    select_columns at the exchanged rows' shape, and select_hop on the CSR
+    pair view's rows and at the owner. The world-1 step's own launch (the
+    whole table as one owner) is the case that counts into the kernels line."""
+    from tpu_sage_torch.dist.halo import CSRPairRows
+    from tpu_sage_torch.kernels import gather, gather_mean, sample_hop, select
+    from tpu_sage_torch.sample.csr import gather_window_pair
     from tpu_sage_torch.sample.sampler import pack_adjacency, sample_tree
 
     bw = peaks[0]
@@ -2423,23 +2592,78 @@ def dist_kernel_cases(torch, graph, peaks):
             4 * lids.shape[0] + distinct(lids[own]) * row + lids.shape[0] * row, weight=0))
 
     # the requester's column pick on the exchanged adjacency || degree rows:
-    # hop 1 (1,024 x 25) and hop 2 (25,600 x 10), a view of row stride 129
-    for hop_ids, fo in ((levels[0], FANOUTS[0]), (levels[1], FANOUTS[1])):
+    # hop 1 (1,024 x 25) and hop 2 (25,600 x 10), a view of row stride 129:
+    # select_hop as the hop launches it (the degree column read in place,
+    # the frontier ids for the degree-0 self-loop; bytes: u, the ids, the
+    # distinct 32-byte sectors of the picks and of the degree words, out)
+    # and the bare select_columns the hop launched before (cols
+    # precomputed). Then the same hops on CSR shards: the pair view's rows
+    # lo || hi || off || deg (the shift and the degree read in place), and
+    # the owner's pick on the window pair with the offsets and degrees as
+    # tensors of their own and no ids (the owner answers values || degree).
+    idx = torch.arange(adj.shape[1], device="cuda")[None, :] < deg[:, None]
+    indptr = torch.zeros(n + 1, dtype=torch.int32, device="cuda")
+    indptr[1:] = torch.cumsum(deg, 0)
+    window = int(deg.max())
+    flat = adj[idx]
+    indices = torch.zeros(flat.shape[0] + (-flat.shape[0]) % window + 2 * window,
+                          dtype=torch.int32, device="cuda")
+    indices[:flat.shape[0]] = flat
+    del idx, flat
+    pair_view = CSRPairRows(indptr, indices, deg, window)
+    for hop, (hop_ids, fo) in enumerate(((levels[0], FANOUTS[0]), (levels[1], FANOUTS[1])), 1):
         rows = packed[hop_ids.long()]
         u = torch.rand((hop_ids.shape[0], fo), generator=gen, device="cuda")
         cols = torch.minimum((u * rows[:, -1:].clamp_min(1).float()).int(),
                              rows[:, -1:].clamp_min(1) - 1).contiguous()
-        view = rows[:, :-1]
-        sectors = distinct((torch.arange(view.shape[0], device="cuda")[:, None]
-                            * view.stride(0) + cols.long()) // 8)
+        view, r_deg = rows[:, :-1], rows[:, -1]
+        base = torch.arange(view.shape[0], device="cuda")[:, None] * view.stride(0)
+        words = (base + cols.long()).reshape(-1)
         cases.append(kernel_case(
-            "select_columns", f"exchanged rows int32 {tuple(view.shape)} (row stride "
+            "select_hop", f"hop {hop} exchanged rows int32 {tuple(view.shape)} (row stride "
+            f"{view.stride(0)}), degree column, ids, u {tuple(u.shape)}",
+            lambda v=view, dg=r_deg, u=u, i=hop_ids: select.select_hop(v, dg, u, ids=i),
+            lambda v=view, dg=r_deg, u=u, i=hop_ids: select.select_hop_reference(v, dg, u,
+                                                                                 ids=i),
+            lambda v=view, c=cols.long(): torch.gather(v, 1, c),
+            32 * distinct(torch.cat([words, base[:, 0] + view.shape[1]]) // 8)
+            + 8 * u.numel() + 4 * hop_ids.shape[0], weight=0))
+        cases.append(kernel_case(
+            "select_columns", f"hop {hop} exchanged rows int32 {tuple(view.shape)} (row stride "
             f"{view.stride(0)}), cols {tuple(cols.shape)}",
             lambda v=view, c=cols: select.select_columns(v, c),
             lambda v=view, c=cols: select.select_columns_reference(v, c),
             lambda v=view, c=cols.long(): torch.gather(v, 1, c),
-            32 * sectors + 8 * cols.numel(), weight=0))
-    del q8
+            32 * distinct(words // 8) + 8 * cols.numel(), weight=0))
+        prow = pair_view.rows(hop_ids)
+        pv, p_shift, p_deg = prow[:, :2 * window], prow[:, 2 * window], prow[:, 2 * window + 1]
+        pcols = (p_shift[:, None] + sample_hop.hop_columns(u, p_deg.clamp_min(1))).long()
+        pbase = torch.arange(pv.shape[0], device="cuda")[:, None] * prow.stride(0)
+        pwords = (pbase + pcols.clamp(0, 2 * window - 1)).reshape(-1)
+        cases.append(kernel_case(
+            "select_hop", f"hop {hop} CSR pair rows int32 {tuple(prow.shape)}, shift and "
+            f"degree columns, ids, u {tuple(u.shape)}",
+            lambda v=pv, dg=p_deg, sh=p_shift, u=u, i=hop_ids: select.select_hop(
+                v, dg, u, shift=sh, ids=i),
+            lambda v=pv, dg=p_deg, sh=p_shift, u=u, i=hop_ids: select.select_hop_reference(
+                v, dg, u, shift=sh, ids=i),
+            lambda v=pv, c=pcols.clamp(0, 2 * window - 1): torch.gather(v, 1, c),
+            32 * distinct(torch.cat([pwords, pbase[:, 0] + 2 * window]) // 8)
+            + 8 * u.numel() + 4 * hop_ids.shape[0], weight=0))
+        pair, off, _ = gather_window_pair(indptr, indices, hop_ids, window)
+        o_deg = deg[hop_ids.long()].contiguous()
+        cases.append(kernel_case(
+            "select_hop", f"hop {hop} owner pick on the window pair int32 {tuple(pair.shape)}, "
+            f"offsets and degrees as tensors, u {tuple(u.shape)}",
+            lambda v=pair, dg=o_deg, sh=off, u=u: select.select_hop(v, dg, u, shift=sh),
+            lambda v=pair, dg=o_deg, sh=off, u=u: select.select_hop_reference(v, dg, u,
+                                                                              shift=sh),
+            lambda v=pair, c=pcols.clamp(0, 2 * window - 1): torch.gather(v, 1, c),
+            32 * distinct((torch.arange(pair.shape[0], device="cuda")[:, None] * pair.stride(0)
+                           + pcols.clamp(0, 2 * window - 1)) // 8)
+            + 2 * 32 * -(-pair.shape[0] // 8) + 8 * u.numel(), weight=0))
+        del prow, pair
+    del q8, indices
     return time_cases(torch, cases, bw), levels
 
 
@@ -2697,16 +2921,17 @@ def nce_dist_per_step(mode, world):
     on each of ``world`` ranks: the WALK_LENGTH walk hops and the tree's 2
     hops each exchange adjacency || degree rows (``gather_rows`` once per
     exchange, or per rank a ring passes; on CSR shards the pick moves to the
-    owner after four gathers) and pick a column (``select_columns``); levels
+    owner after four gathers) and pick a column (``select_hop``); levels
     0 and 1's features (``gather_rows``); the deepest level's pre-reduced
     means (``gather_fanout_mean_owned``); 2 ``mean_project``. ``hier2d``
     answers each exchange once, as exact does."""
     per = world if mode in ("ring", "pipelined") else 1
     hops = WALK_LENGTH + len(FANOUTS)
-    return {"select_columns": hops, "sample_hop": 0,
+    return {"select_columns": 0, "select_hop": hops, "sample_hop": 0,
             "gather_rows": (4 * hops if mode == "csr" else hops * per) + 2 * per,
             "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
-            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "gather_fanout_mean_owned": per}
+            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
+            "gather_fanout_mean_owned": per}
 
 
 def nce_config(**kw):
@@ -2722,11 +2947,12 @@ def multi_gpu_kernel_cases(torch, graph, peaks):
     step's deepest level at world 1 (6,144 roots x 25 x 10 = 1,536,000 ids,
     one owner) and as owner 1 of a (2, 2) layout (the 4 ranks' (C, H, q)
     ids); ``gather_rows(oob="zero")`` as owner 1 of a (2, 2) layout answers
-    the 4 ranks' NCE level-1 ids; ``mean_project`` on the column slices a
+    the 4 ranks' NCE level-1 ids; ``select_hop`` at the partitioned NCE
+    step's three hop shapes; ``mean_project`` on the column slices a
     model axis of 2 gives (the main path's two layers, W (602, 64) and
     (256, 64)), whose concatenation must equal the whole product."""
-    from tpu_sage_torch.kernels import gather, gather_mean, mean_project
-    from tpu_sage_torch.sample.sampler import sample_tree
+    from tpu_sage_torch.kernels import gather, gather_mean, mean_project, sample_hop, select
+    from tpu_sage_torch.sample.sampler import pack_adjacency, sample_tree
 
     bw, bf16_peak, _ = peaks
     feats, adj, deg = graph.feats, graph.adj, graph.degrees
@@ -2766,6 +2992,29 @@ def multi_gpu_kernel_cases(torch, graph, peaks):
         lambda: gather.gather_rows_reference(local, lids, "zero"),
         lambda: torch.where(own[:, None], local[lids.long().clamp(0, m - 1)], 0),
         4 * lids.shape[0] + distinct(lids[own]) * d * 2 + lids.shape[0] * d * 2, weight=0))
+
+    # the partitioned NCE step's column picks (select_hop) on exchanged
+    # adjacency || degree rows: a walk hop (512 x 1) and the tree's two hops
+    # (6,144 x 25, 153,600 x 10); bytes as phase 10's
+    packed = pack_adjacency(adj, deg)
+    for label, hop_ids, fo in (("walk hop", roots[:BATCH], 1), ("tree hop 1", tree[0], FANOUTS[0]),
+                               ("tree hop 2", tree[1], FANOUTS[1])):
+        rows = packed[hop_ids.long()]
+        view, r_deg = rows[:, :-1], rows[:, -1]
+        u = torch.rand((hop_ids.shape[0], fo), generator=gen, device="cuda")
+        cols = sample_hop.hop_columns(u, r_deg.clamp_min(1)).long()
+        base = torch.arange(view.shape[0], device="cuda")[:, None] * view.stride(0)
+        cases.append(kernel_case(
+            "select_hop", f"NCE {label}: exchanged rows int32 {tuple(view.shape)} (row stride "
+            f"{view.stride(0)}), ids, u {tuple(u.shape)}",
+            lambda v=view, dg=r_deg, u=u, i=hop_ids: select.select_hop(v, dg, u, ids=i),
+            lambda v=view, dg=r_deg, u=u, i=hop_ids: select.select_hop_reference(v, dg, u,
+                                                                                 ids=i),
+            lambda v=view, c=cols: torch.gather(v, 1, c),
+            32 * distinct(torch.cat([(base + cols).reshape(-1), base[:, 0] + view.shape[1]])
+                          // 8) + 8 * u.numel() + 4 * hop_ids.shape[0], weight=0))
+        del rows
+    del packed
 
     main_tree = sample_tree(adj, deg, roots[:BATCH], FANOUTS, generator=gen)
     x0 = feats[main_tree[1].long()].view(BATCH, FANOUTS[0], d)
@@ -3517,12 +3766,19 @@ def main() -> int:
     for name_k, (source, replaces) in SOURCES.items():
         rows = [r for r in results if r["kernel"] == name_k]
         # one step's calls: each main-path case once (the foil: the cases
-        # gather_rows has on the main path; select_columns, which the main
-        # path no longer launches: one packed tree's two hops; the int8 and
-        # CSR kernels: one step of the main path's configuration on an int8
-        # table and CSR adjacency); the exact-inference gathers and the other
-        # storage cases have weight 0 and stand in "cases"
-        step = lambda key: sum(r[key] * r["weight"] for r in rows)  # noqa: E731
+        # gather_rows has on the main path; select_columns and select_hop,
+        # which the main path does not launch: one packed tree's two hops;
+        # the int8 and CSR kernels: one step of the main path's configuration
+        # on an int8 table and CSR adjacency, csr_tree its one tree and
+        # sample_hop_csr that tree's two hops one by one); the
+        # exact-inference gathers and the other storage cases have weight 0
+        # and stand in "cases". A library time is null where a weighted case
+        # has no library call.
+        def step(key):
+            vals = [r[key] for r in rows if r["weight"]]
+            if any(v is None for v in vals):
+                return None
+            return sum(r[key] * r["weight"] for r in rows if r["weight"])
         kernels_line.append({
             "name": name_k, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(c[name_k] for c in by_path.values()),

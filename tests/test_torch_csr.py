@@ -18,7 +18,8 @@ import torch
 
 from tpu_sage.sample import csr as jcsr
 from tpu_sage_torch.graph.graph_data import build_padded_adjacency
-from tpu_sage_torch.kernels.sample_hop import sample_hop_csr, sample_hop_csr_reference
+from tpu_sage_torch.kernels.sample_hop import (csr_tree, csr_tree_reference, sample_hop_csr,
+                                               sample_hop_csr_reference)
 from tpu_sage_torch.sample import csr
 from tpu_sage_torch.sample.sampler import sample_tree
 
@@ -265,3 +266,140 @@ def test_csr_kernel_source_notes_what_it_replaces_and_counts_only_launches():
     sample_hop_csr(_t(indptr), _t(indices), _t(deg), _t([0, 5]), torch.zeros(2, 3))
     assert kernels.launch_counts()["sample_hop_csr"] == 0
     assert kernels.COUNTERS["sample_hop_csr"] == "CSR_LAUNCHES"
+
+
+def _jax_hop_uniforms(key, n, fanouts):
+    """The uniforms JAX's ``sample_tree_csr`` draws: one split a hop."""
+    us, k = [], key
+    for f in fanouts:
+        k, sub = jax.random.split(k)
+        us.append(torch.from_numpy(np.array(jax.random.uniform(sub, (n, f)))))
+        n *= f
+    return us
+
+
+@pytest.mark.parametrize("fanouts", [(25, 10), (10,), (3, 2, 2)], ids=str)
+@pytest.mark.parametrize("window", [0, 4], ids=["element", "window"])
+def test_the_one_launch_tree_is_bitwise_the_reference_tree(window, fanouts):
+    """``csr_tree`` (every hop in one launch on the card; on the CPU its
+    plain version, ``sample_hop_csr_reference`` hop by hop) and
+    ``sample_tree_csr`` through it, fed the uniforms of JAX's
+    ``sample_tree_csr``: JAX's levels, on a graph whose isolated nodes (the
+    tail node among them) self-loop, for the element and window forms."""
+    adj, deg = _graph()
+    indptr, indices = _csr(adj, deg, window)
+    ids = np.array([0, 1, 2, 3, 4, 5, 5, 3], np.int32)
+    key = jax.random.key(sum(fanouts) + window)
+    want = jcsr.sample_tree_csr(key, jnp.asarray(indptr), jnp.asarray(indices),
+                                jnp.asarray(deg), jnp.asarray(ids), fanouts, window=window)
+    us = _jax_hop_uniforms(key, ids.shape[0], fanouts)
+    plain = csr_tree_reference(_t(indptr), _t(indices), _t(deg), _t(ids), us)
+    wrapped = csr_tree(_t(indptr), _t(indices), _t(deg), _t(ids), us)
+    tree = csr.sample_tree_csr(_t(indptr), _t(indices), _t(deg), _t(ids), fanouts,
+                               window=window, us=us)
+    assert len(plain) == len(wrapped) == len(fanouts) == len(tree) - 1
+    for level, b in enumerate(want[1:]):
+        for got in (plain[level], wrapped[level], tree[level + 1]):
+            assert got.dtype == torch.int32 and got.shape == (np.asarray(b).shape[0],)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(b))
+    assert torch.equal(csr_tree(_t(indptr), _t(indices), _t(deg), _t(ids), us,
+                                last_only=True)[0], plain[-1])
+
+
+def _walk_graphs(window):
+    from types import SimpleNamespace
+
+    adj, deg = _graph()
+    indptr, indices = _csr(adj, deg, window)
+    jg = SimpleNamespace(indptr=jnp.asarray(indptr), indices=jnp.asarray(indices),
+                         degrees=jnp.asarray(deg), window=window)
+    tg = SimpleNamespace(indptr=_t(indptr), indices=_t(indices), degrees=_t(deg), window=window)
+    return jg, tg
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 4])
+@pytest.mark.parametrize("window", [0, 4], ids=["element", "window"])
+def test_the_one_launch_walk_is_bitwise_the_reference_walk(window, length):
+    """A CSR walk is the tree of fanout 1 a hop, its last level kept:
+    ``graph_random_walk`` fed the uniforms JAX's CSR walk draws (one key a
+    hop, ``uniform(k, (B, 1))``) ends where JAX's ends, isolated nodes
+    staying put."""
+    from tpu_sage.train import unsupervised as jun
+    from tpu_sage_torch.train import unsupervised as un
+
+    jg, tg = _walk_graphs(window)
+    ids = np.array([0, 1, 2, 3, 4, 5, 2, 0, 3], np.int32)
+    key = jax.random.key(10 + length)
+    want = jun.graph_random_walk(key, jg, jnp.asarray(ids), length)
+    us = [torch.from_numpy(np.array(jax.random.uniform(k, (ids.shape[0], 1))))
+          for k in jax.random.split(key, length)]
+    got = un.graph_random_walk(tg, _t(ids), length, us=us)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got[[4, 5]] == torch.tensor([4, 5], dtype=torch.int32)).all()
+    last = csr_tree(tg.indptr, tg.indices, tg.degrees, _t(ids), us, last_only=True)
+    assert len(last) == 1 and torch.equal(last[0], got)
+
+
+@pytest.mark.parametrize("window", [0, 4], ids=["element", "window"])
+def test_trees_and_walks_draw_what_the_hop_by_hop_code_draws(window):
+    """One ``torch.Generator`` seed gives the same tree and the same walk as
+    the hop-by-hop code (one ``uniform_neighbor_sample_csr`` a hop, each
+    drawing its ``(N_l, f_l)`` uniforms in turn), on an SBM store with
+    isolated nodes."""
+    from types import SimpleNamespace
+
+    from tpu_sage_torch.data.synthetic import sbm_store
+    from tpu_sage_torch.train import unsupervised as un
+
+    store = sbm_store(n_nodes=300, n_classes=3, feat_dim=8, avg_degree=5, seed=17)
+    store.degrees[[0, 7, 299]] = 0
+    w = int(store.degrees.max()) if window else 0
+    indptr, indices = (_t(a) for a in _csr(store.adj, store.degrees, w))
+    deg = _t(store.degrees)
+    ids = torch.arange(0, 300, 7, dtype=torch.int32)
+    for fanouts in ((6, 4), (3, 2, 2, 2, 2)):
+        tree = csr.sample_tree_csr(indptr, indices, deg, ids, fanouts, window=w,
+                                   generator=torch.Generator().manual_seed(21))
+        gen, old = torch.Generator().manual_seed(21), [ids]
+        for f in fanouts:
+            old.append(csr.uniform_neighbor_sample_csr(indptr, indices, deg, old[-1], f,
+                                                       generator=gen).reshape(-1))
+        assert len(tree) == len(old)
+        for a, b in zip(tree, old):
+            assert torch.equal(a, b)
+    graph = SimpleNamespace(indptr=indptr, indices=indices, degrees=deg, window=w)
+    for length in (3, 6):
+        walk = un.graph_random_walk(graph, ids, length,
+                                    generator=torch.Generator().manual_seed(22))
+        gen, cur = torch.Generator().manual_seed(22), ids
+        for _ in range(length):
+            cur = csr.uniform_neighbor_sample_csr(indptr, indices, deg, cur, 1,
+                                                  generator=gen)[:, 0]
+        assert torch.equal(walk, cur)
+
+
+def test_the_tree_kernel_checks_its_arguments_and_counts_only_launches():
+    from tpu_sage_torch import kernels
+    from tpu_sage_torch.kernels import sample_hop
+
+    adj, deg = _graph()
+    indptr, indices = _csr(adj, deg, 0)
+    args = (_t(indptr), _t(indices), _t(deg))
+    with pytest.raises(ValueError, match="us\\[1\\] must be"):
+        csr_tree(*args, _t([0, 1]), [torch.zeros(2, 3), torch.zeros(5, 2)])
+    with pytest.raises(ValueError, match="indptr has"):
+        csr_tree(_t(indptr[:-1]), *args[1:], _t([0]), [torch.zeros(1, 2)])
+    wide = torch.zeros(1, 1).expand(2**16, 2**16)  # 2^32 leaves, no memory behind them
+    with pytest.raises(ValueError, match="exceeds the kernel's 2\\^31 - 1"):
+        csr_tree(*args, torch.zeros(2**16, dtype=torch.int32), [wide])
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        csr_tree(*(a.to("meta") for a in args), _t([0]).to("meta"),
+                 [torch.zeros(1, 2, device="meta")])
+    kernels.reset_launch_counts()
+    levels = csr_tree(*args, _t([0, 5]), [torch.zeros(2, 3), torch.zeros(6, 0)])
+    assert [tuple(lv.shape) for lv in levels] == [(6,), (0,)]
+    assert torch.equal(levels[0], _t([1, 1, 1, 5, 5, 5]))
+    assert csr_tree(*args, _t([0, 5]), []) == []
+    assert kernels.launch_counts()["csr_tree"] == 0
+    assert kernels.COUNTERS["csr_tree"] == "TREE_LAUNCHES"
+    assert kernels.KERNEL_MODULES["csr_tree"] is sample_hop and sample_hop.TREE_HOPS == 4

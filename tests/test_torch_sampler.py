@@ -218,3 +218,28 @@ def test_generator_draws_are_uniform_over_true_neighbors():
     counts = np.bincount(out - 10, minlength=d)
     _, pvalue = scipy.stats.chisquare(counts)
     assert pvalue > 1e-4, f"sampling not uniform: counts={counts}"
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_packed_hop_is_the_parents_composition_for_one_generator_state(seed):
+    """Each packed hop is one ``select_hop`` on the gathered adjacency ‖
+    degree rows; from one generator state the tree is the one the parent's
+    composition drew (the row gather, ``clamp_min``, ``hop_columns``,
+    ``select_columns``), degree-0 rows picking their self pad."""
+    from tpu_sage_torch.kernels.sample_hop import hop_columns
+    from tpu_sage_torch.kernels.select import select_columns
+
+    adj, deg = _graph()
+    packed = pack_adjacency(_t(adj), _t(deg))
+    ids = torch.tensor([0, 1, 2, 3, 4, 0, 3], dtype=torch.int32)
+    fanouts = (6, 3)
+    tree = sample_tree_packed(packed, ids, fanouts, generator=torch.Generator().manual_seed(seed))
+    gen, old = torch.Generator().manual_seed(seed), [ids]
+    for f in fanouts:
+        rows = packed[old[-1].long()]
+        u = torch.rand((rows.shape[0], f), generator=gen)
+        old.append(select_columns(rows[:, :-1], hop_columns(u, rows[:, -1].clamp_min(1)))
+                   .reshape(-1))
+    for a, b in zip(tree, old):
+        assert torch.equal(a, b)
+    assert (tree[1].view(-1, 6)[[0, 5]] == 0).all()  # node 0 is isolated: its self pad

@@ -52,6 +52,25 @@ for are built, with this checkout's ``nvcc`` flags, into
   owners of the bf16 and the int8 table, and the partitioned NCE step's
   (153,600 roots x 10 from a 6,144-root tree) at world 1 and as owner 1 of
   4 ((2, 2) layout), as ``chip_smoke.py`` phases 10 and 11 build them.
+- ``select_hop``: the composition the hops on fetched rows ran before
+  ``tsg_select_hop`` (``clamp_min``, the column arithmetic of
+  ``hop_columns``, the shift add, ``tsg_select_columns(rows, cols, out, b,
+  d, ld, k, stream)`` of the other checkout, then ``== 0`` and ``where``
+  for the self-loop), against this ``select_hop``: the packed sampler's two
+  hops (512 x 25, 12,800 x 10, no self-loop), the partitioned step's
+  (1,024 x 25, 25,600 x 10 from a 1,024-root tree, with the frontier ids),
+  its hop 2 on the CSR pair view (the shift and degree columns in place)
+  and at the owner (the window pair, offsets and degrees as tensors), and
+  the partitioned NCE step's deepest hop (153,600 x 10), all on rows of
+  ``pack_adjacency``'s stride 129 or the pair view's.
+- ``csr_tree``: a CSR tree hop by hop, one ``tsg_sample_hop_csr(indptr,
+  indices, degrees, ids, u, out, n_nodes, n_indices, b, k, stream)`` of the
+  other checkout a hop, each reading the level the last one wrote, against
+  this ``csr_tree`` (every hop in one launch), on ``bench_store``'s CSR
+  (window form, as the trainer uploads it) with the same uniforms: the
+  supervised tree (512 roots, (25, 10)), the walk (512 walkers, 3 hops of
+  fanout 1, the last level kept) and the NCE tree (6,144 roots, (25, 10)).
+  Each side returns its deepest level as it wrote it (no copy timed).
 
 The inputs are the ones ``chip_smoke.py`` phase 3 uses (Reddit-shaped
 ``bench_store``, batch 512, fanouts (25, 10), seed 0), and at the other
@@ -74,7 +93,7 @@ import subprocess
 import torch
 
 from tpu_sage_torch.bench.timing import cuda_ms
-from tpu_sage_torch.kernels import _build, gather, gather_mean, mean_project, sample_hop
+from tpu_sage_torch.kernels import _build, gather, gather_mean, mean_project, sample_hop, select
 
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _GATHER = ("gather", "tsg_gather_rows", (_P, _P, _P, _LL, _LL, _LL, _I, _I, _P))
@@ -92,6 +111,9 @@ _OTHER = {  # pair -> the other checkout's (source, entry point, argtypes) it ca
                           (_P, _P, _P, _LL, _I, _I, _I, _P)),),
     "owned": (("gather_mean", "tsg_gather_fanout_mean_owned",
                (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),),
+    "select_hop": (("select", "tsg_select_columns", (_P, _P, _P, _LL, _I, _LL, _I, _P)),),
+    "csr_tree": (("select", "tsg_sample_hop_csr",
+                  (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P)),),
 }
 OWNERS, DIST_BATCH, NCE_ROOTS = 4, 1024, 6144  # chip_smoke.py phases 10 and 11
 PPI_ROWS, EXACT_CHUNK = (56_944, 50), 4096  # chip_smoke.py's PPI stand-in; a node chunk
@@ -107,14 +129,20 @@ def _other_module(root: str, name: str):
     return module
 
 
+_OTHER_LIBS = {}  # source name -> the other checkout's library, built once a run
+
+
 def _build_other(root: str, name: str, entry: str, argtypes):
-    src = os.path.join(root, "tpu_sage_torch", "kernels", "csrc", name + ".cu")
-    out_dir = os.path.join(_build.BUILD_DIR, "ab")
-    os.makedirs(out_dir, exist_ok=True)
-    lib_path = os.path.join(out_dir, f"lib{name}_other.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path, src], check=True,
-                   capture_output=True)
-    fn = getattr(ctypes.CDLL(lib_path), entry)
+    lib = _OTHER_LIBS.get(name)
+    if lib is None:
+        src = os.path.join(root, "tpu_sage_torch", "kernels", "csrc", name + ".cu")
+        out_dir = os.path.join(_build.BUILD_DIR, "ab")
+        os.makedirs(out_dir, exist_ok=True)
+        lib_path = os.path.join(out_dir, f"lib{name}_other.so")
+        subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib_path, src],
+                       check=True, capture_output=True)
+        lib = _OTHER_LIBS[name] = ctypes.CDLL(lib_path)
+    fn = lib[entry]  # a function object of its own, whatever argtypes another took
     fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
     return fn
 
@@ -228,7 +256,87 @@ def main(argv=None) -> int:
             2 if int8 else 1, vec, stream()), "other tsg_gather_fanout_mean_owned")
         return out
 
+    def other_select_hop(rows, deg, u, shift=None, ids=None):
+        cols = sample_hop.hop_columns(u, deg.clamp_min(1))
+        if shift is not None:
+            cols = shift[:, None] + cols
+        cols = cols.contiguous()
+        out = torch.empty(cols.shape, dtype=torch.int32, device="cuda")
+        _build.check_launch(other["tsg_select_columns", 8](
+            rows.data_ptr(), cols.data_ptr(), out.data_ptr(), rows.shape[0], rows.shape[1],
+            rows.stride(0), cols.shape[1], stream()), "other tsg_select_columns")
+        if ids is not None:
+            out = torch.where(deg[:, None] == 0, ids[:, None], out)
+        return out
+
+    def other_csr_tree(g, roots, us):
+        cur = roots
+        for u in us:
+            out = torch.empty(u.shape, dtype=torch.int32, device="cuda")
+            _build.check_launch(other["tsg_sample_hop_csr", 11](
+                g.indptr.data_ptr(), g.indices.data_ptr(), g.degrees.data_ptr(),
+                cur.data_ptr(), u.data_ptr(), out.data_ptr(), g.degrees.shape[0],
+                g.indices.shape[0], u.shape[0], u.shape[1], stream()),
+                "other tsg_sample_hop_csr")
+            cur = out.view(-1)
+        return cur
+
     pairs = {}
+    if "select_hop" in pairs_wanted:
+        from tpu_sage_torch.dist.halo import CSRPairRows
+        from tpu_sage_torch.sample.csr import gather_window_pair
+        from tpu_sage_torch.sample.sampler import pack_adjacency
+
+        packed = pack_adjacency(adj, degrees)
+        dist_roots = torch.randperm(n, generator=gen, device="cuda")[:DIST_BATCH].int()
+        dist_tree = sample_tree(adj, degrees, dist_roots, (25, 10), generator=gen)
+        nce_roots = torch.randint(0, n, (NCE_ROOTS,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        nce_l1 = sample_tree(adj, degrees, nce_roots, (25,), generator=gen)[1]
+        for label, ids, f, self_loop in (("packed hop 1", l0, 25, False),
+                                         ("packed hop 2", l1, 10, False),
+                                         ("partitioned hop 1", dist_tree[0], 25, True),
+                                         ("partitioned hop 2", dist_tree[1], 10, True),
+                                         ("partitioned NCE hop 2", nce_l1, 10, True)):
+            rows = packed[ids.long()]
+            u = torch.rand((ids.shape[0], f), generator=gen, device="cuda")
+            i = ids if self_loop else None
+            pairs[f"select_hop {label} rows {tuple(rows[:, :-1].shape)} (row stride 129) u "
+                  f"{tuple(u.shape)}{', ids' if self_loop else ''}"] = (
+                lambda r=rows, u=u, i=i: other_select_hop(r[:, :-1], r[:, -1], u, ids=i),
+                lambda r=rows, u=u, i=i: select.select_hop(r[:, :-1], r[:, -1], u, ids=i))
+        csr_g = NodeProblem(store).device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                                                csr=True)
+        w, ids = csr_g.window, dist_tree[1]
+        u = torch.rand((ids.shape[0], 10), generator=gen, device="cuda")
+        prow = CSRPairRows(csr_g.indptr, csr_g.indices, csr_g.degrees, w).rows(ids)
+        pairs[f"select_hop partitioned hop 2 CSR pair rows {tuple(prow.shape)}, shift, ids"] = (
+            lambda: other_select_hop(prow[:, :2 * w], prow[:, 2 * w + 1], u,
+                                     shift=prow[:, 2 * w], ids=ids),
+            lambda: select.select_hop(prow[:, :2 * w], prow[:, 2 * w + 1], u,
+                                      shift=prow[:, 2 * w], ids=ids))
+        pair, off, _ = gather_window_pair(csr_g.indptr, csr_g.indices, ids, w)
+        o_deg = csr_g.degrees[ids.long()].contiguous()
+        pairs[f"select_hop partitioned hop 2 owner pick, window pair {tuple(pair.shape)}"] = (
+            lambda: other_select_hop(pair, o_deg, u, shift=off),
+            lambda: select.select_hop(pair, o_deg, u, shift=off))
+    if "csr_tree" in pairs_wanted:
+        csr_g = NodeProblem(store).device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                                                csr=True)
+        nce_roots = torch.randint(0, n, (NCE_ROOTS,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        for label, r_ids, fos, last in (("tree", roots, (25, 10), False),
+                                        ("walk", roots, (1, 1, 1), True),
+                                        ("NCE tree", nce_roots, (25, 10), False)):
+            us, q = [], r_ids.shape[0]
+            for f in fos:
+                us.append(torch.rand((q, f), generator=gen, device="cuda"))
+                q *= f
+            pairs[f"csr_tree {label} roots ({r_ids.shape[0]},) fanouts {fos}: hop by hop vs "
+                  f"one launch"] = (
+                lambda r=r_ids, us=us: other_csr_tree(csr_g, r, us),
+                lambda r=r_ids, us=us, last=last: sample_hop.csr_tree(
+                    csr_g.indptr, csr_g.indices, csr_g.degrees, r, us, last_only=last)[-1])
     if "mean_project_f32" in pairs_wanted:
         ids_u = torch.randint(0, n, (NCE_ROOTS * 25,), generator=gen, device="cuda",
                               dtype=torch.int32)

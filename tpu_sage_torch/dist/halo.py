@@ -56,8 +56,7 @@ import torch.distributed as dist
 from tpu_sage_torch.dist.mesh import rank, shard_offset, world
 from tpu_sage_torch.kernels.gather import gather_rows
 from tpu_sage_torch.kernels.gather_mean import gather_fanout_mean_owned
-from tpu_sage_torch.kernels.sample_hop import hop_columns
-from tpu_sage_torch.kernels.select import select_columns
+from tpu_sage_torch.kernels.select import select_columns, select_hop
 from tpu_sage_torch.ops import row_gather
 from tpu_sage_torch.sample.csr import gather_window_pair
 
@@ -178,9 +177,8 @@ def dist_sample_csr_owner_select(
     owned = ((local >= 0) & (local < m))[:, None]
     local_idx = local.clamp(0, m - 1).to(torch.int32).contiguous()
     r_deg = row_gather(degrees, local_idx)
-    cols = hop_columns(all_u, r_deg.clamp_min(1))
     pair, off, _ = gather_window_pair(indptr, indices, local_idx, window)
-    vals = select_columns(pair, (off[:, None] + cols).contiguous())
+    vals = select_hop(pair, r_deg, all_u, shift=off)
     return reduce_scatter(torch.where(owned, torch.cat([vals, r_deg[:, None]], dim=1), 0))
 
 

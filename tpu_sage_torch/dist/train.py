@@ -27,8 +27,9 @@ same as on the flat layout, so batches, losses and checkpoints agree.
 The JAX package compiles this as one ``shard_map`` program per step or per
 scanned epoch; here each rank runs it eagerly and its kernels are the port's
 (``gather_rows`` for every owner's answers, ``gather_fanout_mean_owned`` for
-the pre-reduced level, ``select_columns`` for the requester's column pick,
-``mean_project`` inside the model).
+the pre-reduced level, ``select_hop`` for the requester's column pick with
+its arithmetic and degree-0 self-loop, one launch a hop, ``mean_project``
+inside the model).
 
 Randomness cannot match ``jax.random``: the epoch permutation and the
 sampling uniforms come from ``torch.Generator``s seeded from ``(seed, epoch,
@@ -58,8 +59,7 @@ from tpu_sage_torch.dist.partition import (shard_fold, shard_fold_masked, shard_
                                            shard_graph_csr)
 from tpu_sage_torch.graph.graph_data import GraphStore
 from tpu_sage_torch.kernels.gather_mean import reciprocal
-from tpu_sage_torch.kernels.sample_hop import hop_columns
-from tpu_sage_torch.kernels.select import select_columns
+from tpu_sage_torch.kernels.select import select_hop
 from tpu_sage_torch.nn.model import GSSupervised
 from tpu_sage_torch.train.checkpoint import BestTracker, maybe_checkpoint, resume_state
 from tpu_sage_torch.train.losses import loss_lookup
@@ -345,11 +345,7 @@ def sample_level_distributed(
         r_deg = rows[:, 2 * pair_window + 1]
     else:
         r_adj, r_deg, shift = rows[:, :-1], rows[:, -1], None
-    cols = hop_columns(u, r_deg.clamp_min(1))
-    if shift is not None:
-        cols = shift[:, None] + cols
-    nbr = select_columns(r_adj, cols.contiguous())
-    nbr = torch.where(r_deg[:, None] == 0, ids[:, None], nbr)
+    nbr = select_hop(r_adj, r_deg, u.contiguous(), shift=shift, ids=ids)
     return nbr.reshape(-1), ovf
 
 

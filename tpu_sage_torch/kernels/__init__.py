@@ -6,7 +6,8 @@ port module            replaces (JAX package)                              CUDA 
 ``select``             ``kernels/select.py::select_columns_pallas``        ``csrc/select.cu``
 ``sample_hop``         ``kernels/select.py::select_columns_pallas`` with   ``csrc/select.cu``
                        the hop's gathers (``sample/sampler.py:55-60``);
-                       the CSR hop (``sample/csr.py``)
+                       the CSR hop and the CSR tree in one launch
+                       (``sample/csr.py``)
 ``gather``             ``kernels/gather.py::gather_rows``                  ``csrc/gather.cu``
 ``gather_blockspec``   ``kernels/gather.py::gather_rows_blockspec``        ``csrc/gather.cu``
 ``gather_mean``        ``kernels/gather_mean.py::gather_fanout_mean``      ``csrc/gather_mean.cu``
@@ -21,18 +22,20 @@ in the JAX package), ``gather_fanout_mean_owned``.
 
 Each module holds its kernel's wrapper, the plain PyTorch version beside it
 (``*_reference``) and a launch counter ``LAUNCHES``; ``gather_mean`` holds
-two more entry points, the int8 fanout mean and the owner-masked one, and
-``sample_hop`` a second, the CSR hop, each with a counter of its own
-(``COUNTERS``). A wrapper runs the plain
+two more entry points, the int8 fanout mean and the owner-masked one,
+``sample_hop`` two, the CSR hop and the CSR tree, and ``select`` one, the
+column pick fused with its hop arithmetic (``select_hop``), each with a
+counter of its own (``COUNTERS``). A wrapper runs the plain
 version only for tensors on the CPU; for a CUDA tensor it launches its kernel
 or raises. The kernels build on first use (``_build``). ``gather_blockspec``
 is the measurement foil of ``gather``: nothing on the main path launches it.
 The main path's sampler hops launch ``sample_hop`` (select fused with its
-gathers); the packed sampler launches ``select``.
+gathers); the packed sampler and the partitioned hops ``select_hop``; CSR
+trees and walks ``csr_tree``.
 
 ``probe()`` is the counterpart of the JAX package's
 ``tpu_sage/kernels/__init__.py::probe``: it builds every source, then in a
-subprocess under a timeout launches each of the nine kernels once against
+subprocess under a timeout launches each of the eleven kernels once against
 its plain version. It is a health check and switches nothing: no path reads it.
 The JAX package's ``PALLAS_ENABLED`` flag has no counterpart, because the
 port's kernels are always on for CUDA tensors.
@@ -57,10 +60,13 @@ KERNEL_MODULES = {
     "gather_fanout_mean_int8": gather_mean,
     "sample_hop_csr": sample_hop,
     "gather_fanout_mean_owned": gather_mean,
+    "select_hop": select,
+    "csr_tree": sample_hop,
 }
 COUNTERS = {name: "LAUNCHES" for name in KERNEL_MODULES}  # each kernel's counter
 COUNTERS.update(gather_fanout_mean_int8="INT8_LAUNCHES", sample_hop_csr="CSR_LAUNCHES",
-                gather_fanout_mean_owned="OWNED_LAUNCHES")
+                gather_fanout_mean_owned="OWNED_LAUNCHES", select_hop="HOP_LAUNCHES",
+                csr_tree="TREE_LAUNCHES")
 
 
 def launch_counts() -> dict:
@@ -79,7 +85,7 @@ def probe(timeout: float = 90.0) -> bool:
     minutes and is not what the timeout guards), then runs
     ``kernels/_probe.py`` in a subprocess killed after ``timeout`` seconds,
     so a hung launch cannot take the caller down. True only if each of the
-    nine kernels launched once and matched; False with no card, no ``nvcc``,
+    eleven kernels launched once and matched; False with no card, no ``nvcc``,
     a failed build, a hang or a mismatch. Never raises."""
     import torch
 

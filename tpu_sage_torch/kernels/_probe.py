@@ -1,5 +1,5 @@
 """The body of ``kernels.probe``: load every kernel library (building any
-that is missing) from the build directory given, launch each of the nine
+that is missing) from the build directory given, launch each of the eleven
 kernels once at a tiny shape on the card, and hold it against its plain
 version on the same inputs (the wrapper on CPU tensors). Exits 0 only if
 every kernel launched once and matched; run in a subprocess by
@@ -51,11 +51,16 @@ def cases(g: torch.Generator) -> dict:
         "sample_hop_csr": (sample_hop.sample_hop_csr, (indptr, indices, deg, ids, u)),
         "gather_fanout_mean_owned": (gather_mean.gather_fanout_mean_owned,
                                      (table[16:48].contiguous(), fids, fanout, 16)),
+        "select_hop": (lambda rows, u, i: select.select_hop(rows[:, :-1], rows[:, -1], u, ids=i),
+                       (torch.cat([adj[ids.long()], deg[ids.long(), None]], 1), u, ids)),
+        "csr_tree": (lambda p, x, dg, i, u0, u1: torch.cat(sample_hop.csr_tree(p, x, dg, i,
+                                                                              [u0, u1])),
+                     (indptr, indices, deg, ids, u, torch.rand((b * fanout, 3), generator=g))),
     }
 
 
 def run() -> dict:
-    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for the nine kernels."""
+    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for the eleven kernels."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.kernels import _build
 

@@ -11,9 +11,12 @@ CSR tree is bitwise the dense tree.
 The reference has two hop forms: the element hop (one indices read per
 sample) and the window hop (the two ``window``-wide rows of the flat
 indices that cover a node's span, then the one-hot select), bit-identical
-by construction. On the card both launch one kernel,
-``kernels/sample_hop.py::sample_hop_csr``; on the CPU both run its plain
-version. The window pair itself, ``gather_window_pair``, stays a plain
+by construction. On the card a single hop of either form launches one
+kernel, ``kernels/sample_hop.py::sample_hop_csr``, and a whole tree of
+either form one launch of ``kernels/sample_hop.py::csr_tree`` (every hop,
+up to 4); on the CPU both run their plain versions. ``sample_tree_csr``
+draws every hop's uniforms first, in the hop-by-hop order, so the tree is
+the same. The window pair itself, ``gather_window_pair``, stays a plain
 function of row gathers, and ``window_pair_hop`` composes the window hop
 from it and ``select_columns`` as the reference does.
 """
@@ -25,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpu_sage_torch.kernels.sample_hop import hop_columns, sample_hop_csr
+from tpu_sage_torch.kernels.sample_hop import csr_tree, hop_columns, sample_hop_csr
 from tpu_sage_torch.kernels.select import select_columns
 from tpu_sage_torch.ops import row_gather
 from tpu_sage_torch.sample.sampler import _uniforms, sample_tree
@@ -137,18 +140,26 @@ def sample_tree_csr(
     us: Optional[Sequence[torch.Tensor]] = None,
 ) -> List[torch.Tensor]:
     """``sample_tree`` against CSR storage, with the same level shapes and
-    the same draws. ``window`` > 0 takes the window hop, 0 the element hop."""
-    levels = [ids.to(torch.int32)]
+    the same draws. ``window`` > 0 stands for the window hop, 0 the element
+    hop: both read the same neighbors, so both run as one ``csr_tree``
+    launch."""
+    ids = ids.to(torch.int32).contiguous()
+    return [ids] + csr_tree(indptr, indices, degrees, ids,
+                            hop_uniforms(ids, fanouts, generator, us))
+
+
+def hop_uniforms(ids: torch.Tensor, fanouts: Sequence[int],
+                 generator: Optional[torch.Generator] = None,
+                 us: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """Each hop's ``(N_l, f_l)`` uniforms below ``ids``: ``us`` as given, or
+    drawn from ``generator`` hop by hop, as the hop-by-hop sampler draws them."""
+    out, n = [], ids.shape[0]
     for hop, fanout in enumerate(fanouts):
-        u = None if us is None else us[hop]
-        if window > 0:
-            nbr = uniform_neighbor_sample_csr_window(indptr, indices, degrees, levels[-1],
-                                                     fanout, window, generator=generator, u=u)
-        else:
-            nbr = uniform_neighbor_sample_csr(indptr, indices, degrees, levels[-1], fanout,
-                                              generator=generator, u=u)
-        levels.append(nbr.reshape(-1))
-    return levels
+        u = us[hop] if us is not None else torch.rand(
+            (n, fanout), generator=generator, device=ids.device, dtype=torch.float32)
+        out.append(u.contiguous())
+        n *= fanout
+    return out
 
 
 def graph_sample_tree(graph, ids: torch.Tensor, fanouts: Sequence[int], *,

@@ -12,7 +12,8 @@ for bit.
 A hop of ``sample_tree`` is one ``sample_hop`` kernel (gathers, column
 arithmetic and select fused). ``sample_tree_packed`` is the reference's
 packed alternative: one row gather of ``adjacency ‖ degree`` per hop, then
-the column select; it draws the same tree for the same uniforms.
+the column pick with its arithmetic (one ``select_hop`` kernel); it draws
+the same tree for the same uniforms.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from tpu_sage_torch.kernels.sample_hop import hop_columns, sample_hop
-from tpu_sage_torch.kernels.select import select_columns
+from tpu_sage_torch.kernels.sample_hop import sample_hop
+from tpu_sage_torch.kernels.select import select_hop
 from tpu_sage_torch.ops import row_gather
 
 
@@ -95,8 +96,8 @@ def sample_tree_packed(
     us: Optional[Sequence[torch.Tensor]] = None,
 ) -> List[torch.Tensor]:
     """``sample_tree`` against a ``pack_adjacency`` table: one row gather per
-    hop, then the column select on the adjacency part of the rows (a view,
-    no copy).
+    hop, then the column pick (``select_hop``) on the adjacency part of the
+    rows and their degree column (views, no copy).
 
     Draws the same tree as ``sample_tree`` for the same ``us``, or for the
     same ``generator`` state (the same uniforms in the same order)."""
@@ -105,8 +106,7 @@ def sample_tree_packed(
         cur = levels[-1].contiguous()
         rows = row_gather(adj_deg, cur)  # one gather: adj ‖ deg
         u = _uniforms(cur, fanout, generator, None if us is None else us[hop])
-        cols = hop_columns(u, rows[:, -1].clamp_min(1))
-        levels.append(select_columns(rows[:, :-1], cols).reshape(-1))
+        levels.append(select_hop(rows[:, :-1], rows[:, -1], u.contiguous()).reshape(-1))
     return levels
 
 

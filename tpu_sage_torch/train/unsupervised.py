@@ -12,7 +12,8 @@ supervised ``GSSupervised`` tower (its head unused), so any aggregator and
 prep works.
 
 Walks run on the device: each hop is one ``uniform_neighbor_sample`` at
-fanout 1 (the ``sample_hop`` kernel; ``sample_hop_csr`` on CSR adjacency).
+fanout 1 (the ``sample_hop`` kernel); on CSR adjacency the whole walk is one
+``csr_tree`` launch (up to 4 hops a launch).
 Anchors, positives and negatives share one sampled tree and one encoder
 pass: ``(2 + Q)·B`` roots.
 
@@ -39,10 +40,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_sage_torch.kernels.sample_hop import csr_tree
 from tpu_sage_torch.nn.model import GSSupervised
 from tpu_sage_torch.ops import row_gather
-from tpu_sage_torch.sample.csr import (graph_sample_tree, uniform_neighbor_sample_csr,
-                                       uniform_neighbor_sample_csr_window)
+from tpu_sage_torch.sample.csr import graph_sample_tree, hop_uniforms
 from tpu_sage_torch.sample.sampler import uniform_neighbor_sample
 from tpu_sage_torch.train.checkpoint import BestTracker, maybe_checkpoint, resume_state
 from tpu_sage_torch.train.trainer import (COMPUTE_DTYPES, Graph, TrainConfig, Trainer,
@@ -67,22 +68,16 @@ def graph_random_walk(graph, ids: torch.Tensor, length: int, *,
                       generator: Optional[torch.Generator] = None,
                       us: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
     """``random_walk`` on whichever storage ``graph`` has: CSR (it has
-    ``indptr``; the window hop when ``graph.window`` > 0, else the element
-    hop) or the dense padded table."""
+    ``indptr``; the window and element hops read the same neighbors, so
+    either is one ``csr_tree`` launch of fanout 1 a hop, its last level
+    kept) or the dense padded table."""
     if not hasattr(graph, "indptr"):
         return random_walk(graph.adj, graph.degrees, ids, length, generator=generator, us=us)
-    cur = ids.to(torch.int32)
-    for hop in range(length):
-        u = None if us is None else us[hop]
-        if graph.window > 0:
-            nxt = uniform_neighbor_sample_csr_window(graph.indptr, graph.indices, graph.degrees,
-                                                     cur, 1, graph.window, generator=generator,
-                                                     u=u)
-        else:
-            nxt = uniform_neighbor_sample_csr(graph.indptr, graph.indices, graph.degrees, cur, 1,
-                                              generator=generator, u=u)
-        cur = nxt[:, 0]
-    return cur
+    cur = ids.to(torch.int32).contiguous()
+    if length == 0:
+        return cur
+    return csr_tree(graph.indptr, graph.indices, graph.degrees, cur,
+                    hop_uniforms(cur, (1,) * length, generator, us), last_only=True)[0]
 
 
 def corpus_positives(walks: torch.Tensor, ids: torch.Tensor, *,
