@@ -86,7 +86,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    nodes/s, busy share, kernel time by name);
 8. storage: int8 features and CSR adjacency. The int8 fanout mean
    (``gather_fanout_mean_int8``, both modes, bf16 and f32 out, at 12,800
-   roots × F = 10 × 602) and the CSR hop (``sample_hop_csr``, both hops on
+   roots × F = 10 × 602, each with its no-reuse floor; at its edges:
+   fanouts 1-300 across the packed sums' chunk, widths 601, 603, 16 and 608,
+   table bases 1-15 bytes off 16-byte alignment with their last rows, ids
+   out of range, bytes at -128 and 127, extreme scales) and the CSR hop
+   (``sample_hop_csr``, both hops on
    ``bench_store``'s CSR and on a Reddit-shaped SBM store's) bitwise against
    their plain versions and timed, and the same trees in one ``csr_tree``
    launch, bitwise the hops and timed; the reference's window-pair composition
@@ -105,7 +109,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    NCE tree's shapes (512 · (2 + 10) = 6,144 roots: the walk hop 512 × 1,
    dense and CSR; the CSR walk and the CSR NCE tree in one ``csr_tree``
    launch each; the tree's hops 6,144 × 25 and 153,600 × 10; its levels'
-   gathers; the deepest fanout mean over 153,600 roots × 10 × 602;
+   gathers; the deepest fanout mean over 153,600 roots × 10 × 602, of the
+   bf16 table and of the int8 one;
    ``mean_project`` at (6,144, 25, 602) and (6,144, 25, 256); the corpus
    rows) and at the fused first layer's (the projected 232,965 × 128 table's
    gathers and fanout means, the backward's 128,000 raw rows), against
@@ -114,7 +119,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step of ``scripts/bench_unsup.py`` (batch 512, walk length 3, 10
    negatives, 1,689,600 sampled edges per step) for UNSUP_STEPS steps with
    exact launches per step and a profile, then a few steps each with
-   degree-smoothed negatives, CSR adjacency and a walk corpus; phase 5's
+   degree-smoothed negatives, CSR adjacency, a walk corpus and the int8
+   table (``gather_fanout_mean_int8`` in place of ``gather_fanout_mean``);
+   phase 5's
    configuration with ``fuse_first_layer`` beside phase 5's ms/step, with
    the whole-table product timed alone; ``fit_unsupervised`` on
    ``assortative_bench_store()`` with the probe (reported beside the
@@ -1704,7 +1711,8 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
                     q, scale, l2, f, dt, sm),
                 lib, 4 * l2.shape[0] + nd * d + r * d * out_bytes + 4 * d,
                 flops=l2.shape[0] * d * (1 if summean else 2), peak=f32_peak,
-                weight=int(dtype == torch.bfloat16 and summean)))
+                weight=int(dtype == torch.bfloat16 and summean),
+                floor_bytes=4 * l2.shape[0] + l2.shape[0] * d + r * d * out_bytes))
 
     # gather_rows on the int8 step's rows: levels 0 and 1 of the int8 table,
     # 602-byte rows (weight 0: the kernel's step weight is the main path's)
@@ -1780,20 +1788,14 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
             None, tree_bytes, weight=weight))
     results = time_cases(torch, cases, bw)
 
-    # edge cases: fanouts above 32 (both fanout means), CSR rows of degree 0
-    # (the tail node's start is nnz when indices carry no padding), ids out
-    # of range, u = 0 and u one ulp below 1
+    # edge cases: the int8 mean's (check_int8_mean_edges), fanouts above 32
+    # for the dense mean, CSR rows of degree 0 (the tail node's start is nnz
+    # when indices carry no padding), ids out of range, u = 0 and u one ulp
+    # below 1
+    check_int8_mean_edges(torch, gather_mean, q, scale, gen)
     for fo in (33, 40):
         ids = torch.randint(0, q.shape[0], (300 * fo,), generator=gen, device="cuda",
                             dtype=torch.int32)
-        for dtype in (torch.bfloat16, torch.float32):
-            for summean in (True, False):
-                if not torch.equal(
-                        gather_mean.gather_fanout_mean_int8(q, scale, ids, fo, dtype, summean),
-                        gather_mean.gather_fanout_mean_int8_reference(q, scale, ids, fo, dtype,
-                                                                      summean)):
-                    raise AssertionError(f"gather_fanout_mean_int8 F={fo} {dtype} "
-                                         f"summean={summean} differs from its plain version")
         if not torch.equal(gather_mean.gather_fanout_mean(graph.feats, ids, fo),
                            gather_mean.gather_fanout_mean_reference(graph.feats, ids, fo)):
             raise AssertionError(f"gather_fanout_mean F={fo} differs from its plain version")
@@ -1814,11 +1816,70 @@ def storage_cases(torch, np, problem, graph, levels, sbm, peaks):
         raise AssertionError("sample_hop_csr differs from its plain version at its edge cases")
     check_csr_tree_edges(torch, sample_hop, gen, indptr, indices, deg, ids)
     torch.cuda.synchronize()
-    log("  fanouts 33 and 40 (both fanout means, bitwise), the CSR hop and the CSR tree at "
+    log("  fanouts 33 and 40 (the dense fanout mean, bitwise), the CSR hop and the CSR tree at "
         "degree 0, tail rows with and without window padding, ids out of range, u at 0 and "
         "one ulp below 1, ragged B, trees of 1-5 hops and walks of 1-4 and 6: ok; "
         f"window-pair composition bitwise the fused CSR hop, launches {window_counts}")
     return results, window_counts
+
+
+def check_int8_mean_edges(torch, gather_mean, q, scale, gen):
+    """gather_fanout_mean_int8 bitwise against its plain version in its four
+    modes where no path's shapes go: fanouts 1, 33, 40, 257, 258 and 300 on
+    the step's 602-wide table (the packed sums fold every 256 rows); widths
+    601, 603, 16 and 608 (odd widths store one column at a time, narrow rows
+    share a warp); 602- and 601-wide tables whose base lies 1-15 bytes past
+    16-byte alignment, with ids naming their first and last rows (the last
+    row ends where the table does, off 16-byte alignment) and ids out of
+    range (-1, -n - 1, n, n + 7: the plain form wraps once, then clamps);
+    every byte at -128 and at 127 over 256, 257 and 300 rows (the packed
+    lanes' extremes); scales down to bf16 subnormals and up to 2.5e35 (the
+    bf16 product rounds once, as the plain version's f32 product then its
+    rounding do; no sum overflows)."""
+    modes = [(dt, sm) for dt in (torch.bfloat16, torch.float32) for sm in (True, False)]
+
+    def check(label, table, sc, ids, fo):
+        for dt, sm in modes:
+            got = gather_mean.gather_fanout_mean_int8(table, sc, ids, fo, dt, sm)
+            want = gather_mean.gather_fanout_mean_int8_reference(table, sc, ids, fo, dt, sm)
+            if not torch.equal(got, want):
+                raise AssertionError(f"gather_fanout_mean_int8 {label} F={fo} {dt} summean={sm} "
+                                     f"differs from its plain version")
+
+    def rand_ids(n, count):
+        return torch.randint(0, n, (count,), generator=gen, device="cuda", dtype=torch.int32)
+
+    n = q.shape[0]
+    for fo in (1, 33, 40, 257, 258, 300):
+        check("602 wide", q, scale, rand_ids(n, 64 * fo), fo)
+    for width in (601, 603, 16, 608):
+        t = torch.randint(-128, 128, (4096, width), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        sc = torch.rand((width,), generator=gen, device="cuda") * 0.05 + 1e-4
+        for fo in (10, 300):
+            check(f"{width} wide", t, sc, rand_ids(4096, 37 * fo), fo)
+    m = 2048
+    for width in (602, 601):
+        buf = torch.randint(-128, 128, (m * width + 32,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        sc = torch.rand((width,), generator=gen, device="cuda") * 0.05 + 1e-4
+        edge = torch.tensor([0, m - 1, -1, -m - 1, m, m + 7, m - 1, 0, 1, m - 2], device="cuda",
+                            dtype=torch.int32)
+        for off in range(16):
+            base = (16 - buf.data_ptr() % 16 + off) % 16
+            t = buf[base:base + m * width].view(m, width)
+            check(f"{width} wide at +{off} B", t, sc, torch.cat([edge, rand_ids(m, 390)]), 10)
+    for val in (-128, 127):
+        t = torch.full((512, 602), val, device="cuda", dtype=torch.int8)
+        for fo in (256, 257, 300):
+            check(f"every byte {val}", t, scale, rand_ids(512, 9 * fo), fo)
+    sc = torch.tensor([2.0 ** -133, 2.0 ** -130, 1e-38, 3e-39, 1e35, 2.5e35, 0.0, -0.75],
+                      device="cuda").repeat(602 // 8 + 1)[:602].contiguous()
+    check("extreme scales", q, sc, rand_ids(n, 200 * 10), 10)
+    torch.cuda.synchronize()
+    log("  gather_fanout_mean_int8, four modes bitwise: fanouts 1, 33, 40, 257, 258, 300; widths "
+        "601, 603, 16, 608; bases 0-15 B past 16-byte alignment with the last row and ids out "
+        "of range; bytes all -128 and all 127 over 256-300 rows; extreme scales: ok")
 
 
 def check_csr_tree_edges(torch, sample_hop, gen, indptr, indices, deg, ids):
@@ -2032,17 +2093,19 @@ def phase_storage(torch, np, problem, graph, levels, sbm, smi, peaks):
     return results, by_path
 
 
-def unsup_per_step(csr=False, corpus=False):
+def unsup_per_step(csr=False, corpus=False, int8=False):
     """Kernel launches of one NCE step at phase 9's configuration: the walk's
     WALK_LENGTH hops at fanout 1 (none with a corpus) and the tree's 2 hops
     (``sample_hop``; on CSR adjacency one ``csr_tree`` for the walk and one
     for the tree); the tree's levels 0 and 1 gathered and the corpus rows
-    (``gather_rows``); the deepest level's ``gather_fanout_mean``; 2
-    ``mean_project``."""
+    (``gather_rows``; of int8 rows on an int8 table, the scale applied by
+    PyTorch); the deepest level's ``gather_fanout_mean`` (its int8 entry
+    on an int8 table); 2 ``mean_project``."""
     hops = 2 + (0 if corpus else WALK_LENGTH)
     return {"select_columns": 0, "select_hop": 0, "sample_hop": 0 if csr else hops,
             "gather_rows": 2 + int(corpus), "gather_rows_blockspec": 0,
-            "gather_fanout_mean": 1, "mean_project": 2, "gather_fanout_mean_int8": 0,
+            "gather_fanout_mean": int(not int8), "mean_project": 2,
+            "gather_fanout_mean_int8": int(int8),
             "sample_hop_csr": 0, "csr_tree": (1 + int(not corpus)) if csr else 0,
             "gather_fanout_mean_owned": 0}
 
@@ -2057,7 +2120,7 @@ def unsup_config(**kw):
                        **kw)
 
 
-def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
+def unsup_new_shape_cases(torch, graph, csr_graph, qf, peaks):
     """Phase 9 (a): the kernels at the shapes of this phase's paths, against
     their plain versions (bitwise; ``mean_project`` within
     MEAN_PROJECT_TOL) and timed (weight 0: off the main path's step). The
@@ -2065,7 +2128,9 @@ def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
     and CSR), the CSR walk and the CSR NCE tree each in one ``csr_tree``
     launch, the tree's hops (6,144 × 25; 153,600 × 10), its levels 0 and 1
     gathered (6,144 and 153,600 rows of 1,204 bytes), the deepest fanout
-    mean (153,600 roots × 10 × 602) and both layers' ``mean_project``
+    mean (153,600 roots × 10 × 602) of the bf16 table and, as the int8 NCE
+    step has it, of the int8 table ``qf`` (bf16 out, int32 sum), and both
+    layers' ``mean_project``
     ((6,144, 25, 602), (6,144, 25, 256)); the corpus rows (int32, 512 × 16);
     the fused first layer's gathers of the projected (232,965 × 128) bf16
     table (512 and 12,800 rows), its fanout means there (512 × 25,
@@ -2168,6 +2233,19 @@ def unsup_new_shape_cases(torch, graph, csr_graph, peaks):
         lambda: feats[l2_64].float().view(r, f, d).mean(1),
         4 * l2.shape[0] + distinct(l2) * d * 2 + r * d * 4, flops=l2.shape[0] * d,
         peak=f32_peak, weight=0, floor_bytes=4 * l2.shape[0] + l2.shape[0] * d * 2 + r * d * 4))
+    # the int8 NCE step's deepest mean; its library yardstick is phase 8's
+    # (the int32 sum of the gathered rows times scale / F)
+    c8 = qf.scale * gather_mean.reciprocal(f)
+    cases.append(kernel_case(
+        "gather_fanout_mean_int8", f"NCE deepest level int8 {tuple(qf.shape)} ids={l2.shape[0]} "
+        f"F={f} -> bfloat16, int32 sum",
+        lambda: gather_mean.gather_fanout_mean_int8(qf.q, qf.scale, l2, f, torch.bfloat16),
+        lambda: gather_mean.gather_fanout_mean_int8_reference(qf.q, qf.scale, l2, f,
+                                                              torch.bfloat16),
+        lambda: (qf.q[l2_64].view(r, f, d).to(torch.int32).sum(1).float() * c8).to(
+            torch.bfloat16),
+        4 * l2.shape[0] + distinct(l2) * d + r * d * 2 + 4 * d, flops=l2.shape[0] * d,
+        peak=f32_peak, weight=0, floor_bytes=4 * l2.shape[0] + l2.shape[0] * d + r * d * 2))
     x0 = feats[tree[1].long()].view(-1, FANOUTS[0], d)
     x1 = torch.relu(torch.randn((x0.shape[0], FANOUTS[0], 2 * DIMS[0]), generator=gen,
                                 device="cuda")).to(torch.bfloat16)
@@ -2289,11 +2367,12 @@ def check_unsup_and_fused_card_vs_cpu(torch, np):
 
 
 def unsup_run(torch, np, label, problem, unsup, steps, warmup, csr=False, walks=None,
-              profile=False):
+              profile=False, quantize=False):
     """``steps`` timed NCE ``train_step``s at phase 9's configuration after
-    ``warmup``, with the launch counters from 0 checked per step exactly and
-    the loss finite and falling; with ``profile``, PROFILE_STEPS more steps
-    under torch.profiler. Returns the run's record and its launch counts."""
+    ``warmup`` (on the int8 table with ``quantize``), with the launch
+    counters from 0 checked per step exactly and the loss finite and
+    falling; with ``profile``, PROFILE_STEPS more steps under
+    torch.profiler. Returns the run's record and its launch counts."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.train.trainer import build_model
     from tpu_sage_torch.train.unsupervised import UnsupervisedTrainer, unsup_gather_defaults
@@ -2302,7 +2381,8 @@ def unsup_run(torch, np, label, problem, unsup, steps, warmup, csr=False, walks=
     train_ids = problem.folds["train"]
     model = build_model(cfg, problem.n_nodes, max(problem.n_classes, 2), problem.feats_dim)
     trainer = UnsupervisedTrainer(model, cfg, unsup, steps_per_epoch=len(train_ids) // BATCH)
-    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=csr)
+    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=csr,
+                                 quantize=quantize)
     state = trainer.init_state(graph)
     n_batches = warmup + steps + (PROFILE_STEPS if profile else 0)
     perm = np.random.default_rng(7).permutation(train_ids)
@@ -2320,7 +2400,7 @@ def unsup_run(torch, np, label, problem, unsup, steps, warmup, csr=False, walks=
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = unsup_per_step(csr=csr, corpus=walks is not None)
+    want = unsup_per_step(csr=csr, corpus=walks is not None, int8=quantize)
     if counts != {k: v * steps for k, v in want.items()}:
         raise AssertionError(f"{label}: launches in {steps} steps {counts}, expected {want} "
                              f"per step")
@@ -2332,6 +2412,7 @@ def unsup_run(torch, np, label, problem, unsup, steps, warmup, csr=False, walks=
     ms_step = dt / steps * 1e3
     edges = BATCH * (2 + unsup.n_negatives) * (FANOUTS[0] + FANOUTS[0] * FANOUTS[1])
     rec = {"run": label, "csr": csr, "corpus": walks is not None, "neg_power": unsup.neg_power,
+           "feature_int8": quantize,
            "steps": steps, "ms_per_step": ms_step, "edges_per_step": edges,
            "edges_per_s": edges * steps / dt, "loss_first": float(first),
            "loss_last": float(last), "launches_per_step": want}
@@ -2453,7 +2534,8 @@ def phase_unsupervised(torch, np, problem, graph, smi, peaks, main_ms):
     at this phase's shapes; (b) card against CPU; (c) the NCE step at
     ``scripts/bench_unsup.py``'s configuration, UNSUP_STEPS timed with exact
     launches per step and a profile, then UNSUP_VARIANT_STEPS each with
-    degree-smoothed negatives, CSR adjacency and a walk corpus; (d) the main
+    degree-smoothed negatives, CSR adjacency, a walk corpus and the int8
+    table; (d) the main
     path's configuration with ``fuse_first_layer``, FUSED_STEPS, beside
     phase 5's ms/step (``main_ms``), and the two whole-table products timed
     alone; (e) the probe on the assortative store; (f) the entry points.
@@ -2462,7 +2544,9 @@ def phase_unsupervised(torch, np, problem, graph, smi, peaks, main_ms):
     from tpu_sage_torch.train.unsupervised import UnsupConfig
 
     csr_graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=True)
-    results = unsup_new_shape_cases(torch, graph, csr_graph, peaks)
+    qf = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                              quantize=True).feats
+    results = unsup_new_shape_cases(torch, graph, csr_graph, qf, peaks)
     check_unsup_and_fused_card_vs_cpu(torch, np)
 
     by_path, runs = {}, []
@@ -2474,7 +2558,9 @@ def phase_unsupervised(torch, np, problem, graph, smi, peaks, main_ms):
              UnsupConfig(WALK_LENGTH, N_NEGATIVES, 0.75), UNSUP_VARIANT_STEPS, {}),
             ("unsup_csr", "NCE step, CSR", plain, UNSUP_VARIANT_STEPS, dict(csr=True)),
             ("unsup_corpus", "NCE step, walk corpus", plain, UNSUP_VARIANT_STEPS,
-             dict(walks=corpus))):
+             dict(walks=corpus)),
+            ("unsup_int8", "NCE step, int8", plain, UNSUP_VARIANT_STEPS,
+             dict(quantize=True))):
         rec, by_path[path] = unsup_run(torch, np, label, problem, unsup, steps, 2, **kw)
         runs.append(rec)
     del corpus
@@ -3787,6 +3873,7 @@ def main() -> int:
             "launches_per_step_f32": PER_STEP[name_k],
             "launches_per_step_int8_csr": STORAGE_PER_STEP[name_k],
             "launches_per_step_unsupervised": unsup_per_step()[name_k],
+            "launches_per_step_unsupervised_int8": unsup_per_step(int8=True)[name_k],
             "launches_per_step_fused_first_layer": FUSED_PER_STEP[name_k],
             "launches_per_step_partitioned": dist_per_step("exact",
                                                            torch.cuda.device_count())[name_k],

@@ -164,12 +164,15 @@ def _reference_draws(key, jtrainer, jg, ids):
 
 
 @pytest.mark.parametrize("dtype,storage", [("float32", "dense"), ("float32", "csr_window"),
-                                           ("bfloat16", "dense")])
+                                           ("bfloat16", "dense"), ("bfloat16", "int8"),
+                                           ("float32", "int8")])
 def test_one_nce_step_matches_the_reference(monkeypatch, dtype, storage):
     """The same flax parameters (``load_flax_params``), the reference's
     positives and negatives injected and its tree uniforms fed to the
     port's sampler: the loss and every gradient leaf equal the reference's
-    ``_nce_loss_and_grads`` (its head's gradient is zero on both sides).
+    ``_nce_loss_and_grads`` (its head's gradient is zero on both sides),
+    on a dense, CSR or int8 (``quantize``: the deepest level through the
+    int8 fanout mean) table.
     f32: within 1e-5 of the loss and 1e-5 of each leaf's scale (plus 1e-5
     relative). bf16: the model tests' limits, 6e-3 of the loss and 1.5e-2 of
     each leaf's scale."""
@@ -180,7 +183,8 @@ def test_one_nce_step_matches_the_reference(monkeypatch, dtype, storage):
     unsup = jun.UnsupConfig(walk_length=2, n_negatives=3)
     jtr = _j_trainer(jp, JTrainConfig(**kw), unsup)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else None
-    jg = jp.device_graph(train=True, csr=storage != "dense", dtype=jdt)
+    jg = jp.device_graph(train=True, csr=storage == "csr_window", dtype=jdt,
+                         quantize=storage == "int8")
     jstate = jtr.init_state(jg)
     ids = jnp.asarray([3, 17, 40, 41, 77, 90, 101, 119], jnp.int32)
     key = jax.random.key(9)
@@ -189,8 +193,8 @@ def test_one_nce_step_matches_the_reference(monkeypatch, dtype, storage):
     jgrads = _flat(jax.tree_util.tree_map(np.asarray, jgrads))
 
     ttr = _t_trainer(tp, TrainConfig(**kw), un.UnsupConfig(walk_length=2, n_negatives=3))
-    tg = tp.device_graph(train=True, device="cpu", csr=storage != "dense",
-                         dtype=getattr(torch, dtype))
+    tg = tp.device_graph(train=True, device="cpu", csr=storage == "csr_window",
+                         dtype=getattr(torch, dtype), quantize=storage == "int8")
     state = ttr.init_state(tg)
     load_flax_params(ttr.model, jax.tree_util.tree_map(np.asarray, jstate.params))
     pos, neg, us, levels = _reference_draws(key, jtr, jg, ids)

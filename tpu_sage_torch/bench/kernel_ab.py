@@ -71,6 +71,15 @@ for are built, with this checkout's ``nvcc`` flags, into
   supervised tree (512 roots, (25, 10)), the walk (512 walkers, 3 hops of
   fanout 1, the last level kept) and the NCE tree (6,144 roots, (25, 10)).
   Each side returns its deepest level as it wrote it (no copy timed).
+- ``int8_mean``: ``tsg_gather_fanout_mean_int8(table, ids, scale, out,
+  n_table, n_roots, d, fanout, out_bf16, summean, vec, stream)`` of
+  ``cd99898`` (one warp a root, each row in the widest word that divides it
+  and the table's address: 2-byte words for the 602-byte rows, the bytes
+  summed one by one), against this ``gather_fanout_mean_int8``, in its
+  four modes (bf16 or f32 out; int32 sum or dequantize then mean) on
+  ``bench_store``'s int8 table at the int8 step's deepest level (12,800
+  roots x 10) and the NCE step's (153,600 roots x 10 from a 6,144-root
+  tree).
 
 The inputs are the ones ``chip_smoke.py`` phase 3 uses (Reddit-shaped
 ``bench_store``, batch 512, fanouts (25, 10), seed 0), and at the other
@@ -114,6 +123,8 @@ _OTHER = {  # pair -> the other checkout's (source, entry point, argtypes) it ca
     "select_hop": (("select", "tsg_select_columns", (_P, _P, _P, _LL, _I, _LL, _I, _P)),),
     "csr_tree": (("select", "tsg_sample_hop_csr",
                   (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P)),),
+    "int8_mean": (("gather_mean", "tsg_gather_fanout_mean_int8",
+                   (_P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _P)),),
 }
 OWNERS, DIST_BATCH, NCE_ROOTS = 4, 1024, 6144  # chip_smoke.py phases 10 and 11
 PPI_ROWS, EXACT_CHUNK = (56_944, 50), 4096  # chip_smoke.py's PPI stand-in; a node chunk
@@ -281,7 +292,31 @@ def main(argv=None) -> int:
             cur = out.view(-1)
         return cur
 
+    def other_int8_mean(qf, ids, dtype, summean):
+        out = torch.empty((ids.shape[0] // 10, d), dtype=dtype, device="cuda")
+        _build.check_launch(other["tsg_gather_fanout_mean_int8", 12](
+            qf.q.data_ptr(), ids.data_ptr(), qf.scale.data_ptr(), out.data_ptr(), n,
+            out.shape[0], d, 10, int(dtype == torch.bfloat16), int(summean),
+            gather_mean.int8_word_bytes(qf.q), stream()),
+            "other tsg_gather_fanout_mean_int8 (12 arguments)")
+        return out
+
     pairs = {}
+    if "int8_mean" in pairs_wanted:
+        qf = NodeProblem(store).device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                                             quantize=True).feats
+        nce_roots = torch.randint(0, n, (NCE_ROOTS,), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+        nce_ids = sample_tree(adj, degrees, nce_roots, (25, 10), generator=gen)[2]
+        for label, ids in (("step", l2), ("NCE", nce_ids)):
+            for dt in (torch.bfloat16, torch.float32):
+                for sm in (True, False):
+                    mode = "int32 sum" if sm else "dequantize then mean"
+                    pairs[f"int8_mean {label} int8 {tuple(qf.shape)} ids={ids.shape[0]} F=10 -> "
+                          f"{str(dt)[6:]}, {mode}"] = (
+                        lambda i=ids, dt=dt, sm=sm: other_int8_mean(qf, i, dt, sm),
+                        lambda i=ids, dt=dt, sm=sm: gather_mean.gather_fanout_mean_int8(
+                            qf.q, qf.scale, i, 10, dt, sm))
     if "select_hop" in pairs_wanted:
         from tpu_sage_torch.dist.halo import CSRPairRows
         from tpu_sage_torch.sample.csr import gather_window_pair

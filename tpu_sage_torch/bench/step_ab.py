@@ -2,6 +2,7 @@
 training steps whose sampler launches differ between the two.
 
     python -m tpu_sage_torch.bench.step_ab --other DIR [--steps 30] [--rounds 1]
+        [--paths partitioned,partitioned_csr,partitioned_nce,csr,csr_nce]
 
 ``DIR`` holds another checkout of the repository (unpacked with ``git
 archive`` into a git-ignored directory). Each turn is a fresh process that
@@ -16,7 +17,10 @@ on ``bench_store()``:
   10 negatives, exact exchange) at world 1;
 - ``csr``: the main path's configuration (batch 512, fanouts (25, 10),
   (128, 128), bf16) on CSR adjacency, one device;
-- ``csr_nce``: the NCE step at the same configuration on CSR adjacency.
+- ``csr_nce``: the NCE step at the same configuration on CSR adjacency;
+- ``int8``, ``int8_nce`` (not run unless ``--paths`` names them): the main
+  path's step and the NCE step on the int8 table (dense adjacency), whose
+  deepest levels go through the int8 fanout mean.
 
 Each path: 3 warm-up steps, ``--steps`` timed steps ending in
 ``torch.cuda.synchronize()`` (ms/step on the host's clock), then 3 steps
@@ -34,7 +38,9 @@ import os
 import subprocess
 import sys
 
-PATHS = ("partitioned", "partitioned_csr", "partitioned_nce", "csr", "csr_nce")
+PATHS = ("partitioned", "partitioned_csr", "partitioned_nce", "csr", "csr_nce", "int8",
+         "int8_nce")
+DEFAULT_PATHS = PATHS[:5]
 WARMUP, PROFILED = 3, 3
 
 
@@ -71,7 +77,7 @@ def _timed(torch, step, steps):
             "device_kernel_ms_per_step": device_ms}
 
 
-def _turn(steps: int) -> dict:
+def _turn(steps: int, paths) -> dict:
     """One checkout's steps, in this process (its root already first on
     ``sys.path``)."""
     import numpy as np
@@ -104,15 +110,19 @@ def _turn(steps: int) -> dict:
                        ("partitioned_csr", (PartitionedTrainer, dist_cfg, True)),
                        ("partitioned_nce", (PartitionedUnsupervisedTrainer,
                                             cfg.replace(halo="exact"), False, unsup))):
-        out[path] = mesh.run_in_process(lambda a=args: partitioned(*a), "cuda")
+        if path in paths:
+            out[path] = mesh.run_in_process(lambda a=args: partitioned(*a), "cuda")
 
     problem = NodeProblem(store)
     train_ids = np.random.default_rng(5).permutation(problem.folds["train"])
-    graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda", csr=True)
     batches = [torch.as_tensor(train_ids[i * 512:(i + 1) * 512], dtype=torch.int32,
                                device="cuda") for i in range(WARMUP + steps + PROFILED)]
-    for path in ("csr", "csr_nce"):
-        if path == "csr":
+    for path in ("csr", "csr_nce", "int8", "int8_nce"):
+        if path not in paths:
+            continue
+        graph = problem.device_graph(train=True, dtype=torch.bfloat16, device="cuda",
+                                     csr=path.startswith("csr"), quantize=path.startswith("int8"))
+        if not path.endswith("nce"):
             model = build_model(cfg, problem.n_nodes, problem.n_classes, problem.feats_dim)
             trainer = Trainer(model, cfg, steps_per_epoch=len(train_ids) // 512)
         else:
@@ -123,9 +133,9 @@ def _turn(steps: int) -> dict:
                                           steps_per_epoch=len(train_ids) // 512)
         state, it = trainer.init_state(graph), iter(batches)
 
-        def step(path=path, trainer=trainer, state=state, it=it):
+        def step(path=path, trainer=trainer, state=state, it=it, graph=graph):
             ids = next(it)
-            if path == "csr":
+            if not path.endswith("nce"):
                 return trainer.train_step(state, graph, ids, graph.targets[ids.long()])
             return trainer.train_step(state, graph, ids, None)
 
@@ -138,10 +148,16 @@ def main(argv=None) -> int:
     parser.add_argument("--other", help="root of the other checkout")
     parser.add_argument("--steps", type=int, default=30)
     parser.add_argument("--rounds", type=int, default=1)
+    parser.add_argument("--paths", default=",".join(DEFAULT_PATHS),
+                        help=f"comma-separated, of {', '.join(PATHS)}")
     parser.add_argument("--turn", help=argparse.SUPPRESS)  # run one turn from this root
     args = parser.parse_args(argv)
+    paths = args.paths.split(",")
+    unknown = sorted(set(paths) - set(PATHS))
+    if unknown:
+        parser.error(f"unknown paths {unknown}; choose from {list(PATHS)}")
     if args.turn:
-        print(json.dumps(_turn(args.steps)), flush=True)
+        print(json.dumps(_turn(args.steps, paths)), flush=True)
         return 0
     if not args.other:
         parser.error("--other is required")
@@ -159,18 +175,19 @@ def main(argv=None) -> int:
     code = ("import importlib.util as u, sys; sys.path.insert(0, sys.argv[1]); "
             "s = u.spec_from_file_location('step_ab', sys.argv[2]); "
             "m = u.module_from_spec(s); s.loader.exec_module(m); "
-            "sys.exit(m.main(['--turn', '1', '--steps', sys.argv[3]]))")
+            "sys.exit(m.main(['--turn', '1', '--steps', sys.argv[3], '--paths', sys.argv[4]]))")
     for _ in range(args.rounds):
         for side in ("other", "this", "this", "other"):
             root = roots[side]
             r = subprocess.run([sys.executable, "-c", code, root, os.path.abspath(__file__),
-                                str(args.steps)], cwd=root, capture_output=True, text=True)
+                                str(args.steps), args.paths], cwd=root, capture_output=True,
+                               text=True)
             if r.returncode != 0:
                 raise SystemExit(f"the {side} turn failed:\n{r.stderr[-4000:]}")
             turns.append({"side": side, **json.loads(r.stdout.strip().splitlines()[-1])})
     print(smi)
     print(json.dumps({"step_ab": turns, "device": torch.cuda.get_device_name(0),
-                      "paths": PATHS, "timing": "host clock over the timed steps, ending in "
+                      "paths": paths, "timing": "host clock over the timed steps, ending in "
                       "torch.cuda.synchronize(); launches and device ms from torch.profiler"}),
           flush=True)
     return 0

@@ -221,20 +221,50 @@ extern "C" int tsg_gather_fanout_mean(const void* table, const void* ids, void* 
 // Bound on the H100: bytes. At the main path's deepest level (12,800 roots,
 // F = 10, 602 columns) the rows are 128,000 x 602 B = 77.1 MB (about 80 MB
 // in 32-byte sectors, fewer where ids repeat), the ids 0.5 MB and the bf16
-// means 15.4 MB: about 96 MB, 0.029 ms at 3.35 TB/s, against 0.044 ms for
-// the bf16 table's rows and f32 means above. The design is the dense
-// kernel's: one warp per root, ids shuffled from the first F lanes, kJ = 5
-// rows' loads issued before any is added. A row starts at id * d bytes, so
-// a 602-byte row is only 2-byte aligned: the word is the widest of 16, 8,
-// 4, 2 or 1 bytes that divides d and the table's address (a 602-wide row
-// moves as 301 two-byte words, 10 per lane, one pass); the sum of a word's
-// bytes runs in int32 registers (exact for F < 2^24).
+// means 15.4 MB: about 96 MB, 0.029 ms at 3.35 TB/s. The first design read
+// a 602-byte row, which is only 2-byte aligned, in 2-byte words, one byte's
+// shift, sign extension and add at a time: its loads alone took as long as
+// the whole summean kernel, and the work per byte cost time only in the
+// dequantize modes (I2F, and F2F for bf16, at a quarter of the integer
+// rate) (bench/int8_stages.py; PERF.md). The redesign
+// (kernels/gather_mean.py::int8_plan states its choices):
+//   - loads: a group of LPR lanes a root (32 for a 602-byte row; 8 or 16 for
+//     rows of at most 160 or 320 bytes, several roots a warp); the group's
+//     lanes load the root's ids once and __shfl_sync hands them out; each
+//     row is read as the aligned 4-byte words that cover it (lane sub of the
+//     group takes words sub, sub + LPR, ..., 5 a lane a pass), and the loads
+//     of kJ = 5 rows are issued before any is used: 4 bytes in flight a
+//     register, twice the first design's. Where a row starts off 4-byte
+//     alignment (REALIGN: every row when d or the table's base is not a
+//     multiple of 4), column word k (columns 4k .. 4k + 3) is one prmt of
+//     span words k and k + 1 with the row's byte offset as its selector,
+//     word k + 1 coming from the next lane (one __shfl_sync; the group's
+//     first lane supplies the last lane, from the next pass's first word).
+//     A word is read only where it holds a byte of its row, so no read
+//     leaves the table's 4-byte granules. Ten rows in flight measured no
+//     faster (more registers, fewer warps).
+//   - summean: each byte biased to q + 128 (one XOR a word), pairs of
+//     columns zero-extended into the 16-bit lanes of one register (one prmt
+//     a pair) and summed with one 32-bit add: two columns an add, exact
+//     while 255 * rows < 2^16, so at most 256 rows (the plan's chunk) before
+//     the lanes fold into int32 sums less 128 * rows. Integer sums are exact
+//     in any order, so the result is the int32 sum's.
+//   - dequantize: no conversion instruction. float(q) is the f32 whose bits
+//     are 0x4B000000 | (q + 128) (one prmt of the biased word) minus 8388736
+//     (one FADD): exact. bf16: q * scale_bf16 is exact in f32 (8 + 8
+//     significant bits) and float(q)'s lower 16 bits are zero, so one
+//     mul.rn.bf16x2 of float(q)'s bits by bf16(scale) << 16 rounds the
+//     product once into the upper half and leaves +0 in the lower: the bits
+//     of the widened bf16 product, added in f32. f32: fma(float(q), scale,
+//     acc). The lane's 20 column factors wait in shared memory, read where
+//     they are used, and the kernel is held to 102 registers (5 blocks an
+//     SM): registers go to loads in flight.
+//   - outputs go out in pairs (one at a time for odd d).
 
 namespace {
 
-template <int V> struct Int8WordsPerLane {
-  static constexpr int value = V >= 16 ? 1 : (V == 8 ? 2 : (V == 4 ? 5 : 10));
-};
+constexpr int kInt8Chunk = 256;   // rows a packed 16-bit sum holds: 255 * 256 < 2^16
+constexpr int kInt8Words = 5;     // 4-byte column words a lane a pass
 
 template <int BYTES> struct Int8Word;
 template <> struct Int8Word<1> { using T = uint8_t; };
@@ -242,6 +272,11 @@ template <> struct Int8Word<2> { using T = uint16_t; };
 template <> struct Int8Word<4> { using T = uint32_t; };
 template <> struct Int8Word<8> { using T = uint2; };
 template <> struct Int8Word<16> { using T = uint4; };
+
+// the owner-masked kernel's words per lane for V-byte words of an int8 row
+template <int V> struct Int8WordsPerLane {
+  static constexpr int value = V >= 16 ? 1 : (V == 8 ? 2 : (V == 4 ? 5 : 10));
+};
 
 __device__ __forceinline__ void ld_nc(uint8_t& v, const void* p) {
   v = __ldg(reinterpret_cast<const unsigned char*>(p));
@@ -254,12 +289,27 @@ __device__ __forceinline__ int byte_of(const W& v, int e) {
   return (int)(int8_t)(uint8_t)(part(v, e >> 2) >> (8 * (e & 3)));
 }
 
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// float(q) of byte e of a word of biased bytes (q ^ 0x80 = q + 128)
+__device__ __forceinline__ float magic_float(uint32_t biased, int e) {
+  return __fsub_rn(__uint_as_float(prmt(biased, 0x4B000000u, 0x7540u + e)), 8388736.0f);
+}
+
 __device__ __forceinline__ float round_out(float x, float*) { return x; }
 __device__ __forceinline__ __nv_bfloat16 round_out(float x, __nv_bfloat16*) {
   return __float2bfloat16_rn(x);
 }
-__device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // two adjacent outputs in one store (4 bytes of bf16, 8 of f32)
 __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a, float b) {
@@ -269,20 +319,64 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <int V, int SUMMEAN, typename OutT>
-__global__ void __launch_bounds__(kWarps * 32)
+// One column word (4 columns) into its accumulators. summean: acc[0] holds
+// columns 0, 1 and acc[1] columns 2, 3 as biased 16-bit sums. dequantize:
+// acc[e] is column e's f32 sum, fac[e] its f32 scale (f32 out) or the bits
+// bf16(scale) << 16 (bf16 out).
+template <int SUMMEAN, bool BF16, typename Acc>
+__device__ __forceinline__ void add_word(uint32_t x, Acc (&acc)[4], const float (&fac)[4]) {
+  const uint32_t biased = x ^ 0x80808080u;
+  if constexpr (SUMMEAN) {
+    acc[0] += prmt(biased, 0u, 0x4140u);
+    acc[1] += prmt(biased, 0u, 0x4342u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float qf = magic_float(biased, e);
+      if constexpr (BF16) {
+        acc[e] = __fadd_rn(acc[e], __uint_as_float(mul_bf16x2(__float_as_uint(qf),
+                                                              __float_as_uint(fac[e]))));
+      } else {
+        acc[e] = __fmaf_rn(qf, fac[e], acc[e]);
+      }
+    }
+  }
+}
+
+// a lane's column factors, read back from shared memory where they are used
+__device__ __forceinline__ float4 ld_shared(const float4* p) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"((unsigned)__cvta_generic_to_shared(p)));
+  return v;
+}
+
+// dequantize: at least 5 blocks an SM (at most 102 registers a thread)
+template <int SUMMEAN, typename OutT, bool LONG, bool REALIGN>
+__global__ void __launch_bounds__(kWarps * 32, SUMMEAN ? 1 : 5)
 gather_fanout_mean_int8_kernel(const int8_t* __restrict__ table, const int32_t* __restrict__ ids,
                                const float* __restrict__ scale, OutT* __restrict__ out,
-                               int64_t n_table, int64_t n_roots, int d, int fanout) {
-  using W = typename Int8Word<V>::T;
-  using Acc = typename std::conditional<SUMMEAN, int, float>::type;
-  constexpr int kK = Int8WordsPerLane<V>::value;
+                               int64_t n_table, int64_t n_roots, int d, int fanout,
+                               int lanes_per_row, int chunk) {
+  using Acc = typename std::conditional<SUMMEAN, uint32_t, float>::type;
+  constexpr bool kBf16 = std::is_same<OutT, __nv_bfloat16>::value;
+  constexpr int kK = kInt8Words;
+  constexpr int kSlots = REALIGN ? kK + 1 : kK;  // the group's first lane loads one more
   const int lane = threadIdx.x & 31;
-  const int64_t root = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (root >= n_roots) return;
-  const int32_t* root_ids = ids + root * fanout;
-  const int words = d / V;
-  OutT* dst = out + root * d;
+  const int lpr = lanes_per_row;
+  const int sub = lane & (lpr - 1);
+  const int64_t warp_root = ((int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5)) * (32 / lpr);
+  if (warp_root >= n_roots) return;  // whole warps only: the groups shuffle together
+  const int64_t root = warp_root + lane / lpr;
+  const bool live = root < n_roots;
+  const int32_t* root_ids = ids + (live ? root : 0) * fanout;
+  const int col_words = (d + 3) >> 2;
+  OutT* dst = out + (live ? root : 0) * d;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(table);
+  // dequantize: each lane's column factors for the pass, 4 a column word
+  __shared__ float4 fac_s[SUMMEAN ? 1 : kWarps][kK][32];
+  float4(&my_fac)[kK][32] = fac_s[SUMMEAN ? 0 : threadIdx.x >> 5];
 
   auto load_id = [&](int j) -> int64_t {
     if (j >= fanout) return 0;
@@ -290,132 +384,175 @@ gather_fanout_mean_int8_kernel(const int8_t* __restrict__ table, const int32_t* 
     if (id < 0) id += n_table;
     return id < 0 ? 0 : (id >= n_table ? n_table - 1 : id);
   };
-  const int64_t first_ids = load_id(lane);
+  const int64_t first_ids = load_id(sub);  // the group's first lpr ids, loaded once
 
 #pragma unroll 1
-  for (int w0 = 0; w0 < words; w0 += 32 * kK) {
-    Acc acc[kK][V] = {};
-    float scale_dt[kK][V];  // summean = 0: each column's scale in the compute dtype
-    if constexpr (!SUMMEAN) {
+  for (int w0 = 0; w0 < col_words; w0 += lpr * kK) {
+    Acc acc[kK][4];
+    int wide[LONG ? kK : 1][4];  // F > chunk: the folded int32 sums
 #pragma unroll
-      for (int k = 0; k < kK; ++k) {
-        const int wi = w0 + k * 32 + lane;
+    for (int k = 0; k < kK; ++k) {
+      const int c0 = 4 * (w0 + k * lpr + sub);
+      float f[4];
 #pragma unroll
-        for (int e = 0; e < V; ++e)
-          scale_dt[k][e] =
-              wi < words ? widen(round_out(scale[wi * V + e], (OutT*)nullptr)) : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        acc[k][e] = 0;
+        if constexpr (LONG) wide[k][e] = 0;
+        if constexpr (!SUMMEAN) {
+          const float s = c0 + e < d ? scale[c0 + e] : 0.f;
+          f[e] = kBf16 ? __uint_as_float(
+                             (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(s)) << 16)
+                       : s;
+        }
       }
+      if constexpr (!SUMMEAN) my_fac[k][lane] = make_float4(f[0], f[1], f[2], f[3]);
     }
+    int chunk_start = 0;
 #pragma unroll 1
-    for (int jb = 0; jb < fanout; jb += 32) {
-      const int64_t my_id = jb == 0 ? first_ids : load_id(jb + lane);
-      const int jend = min(fanout, jb + 32);  // the ids this block of lanes holds
+    for (int jb = 0; jb < fanout; jb += lpr) {
+      const int64_t my_id = jb == 0 ? first_ids : load_id(jb + sub);
+      const int jend = min(fanout, jb + lpr);  // the ids the group's lanes hold
 #pragma unroll 1
       for (int j0 = jb; j0 < jend; j0 += kJ) {
-        W v[kJ][kK];
+        uint32_t v[kJ][kSlots];
+        uint32_t sel[kJ];  // the realigning prmt's selector: the row's byte offset
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
-          const int64_t id = __shfl_sync(0xffffffffu, my_id, j0 - jb + jj);
-          const W* row = reinterpret_cast<const W*>(table + id * d);
+          const int64_t id = __shfl_sync(0xffffffffu, my_id, j0 - jb + jj, lpr);
+          const uintptr_t a = base + (uintptr_t)(id * d);
+          const int sh = REALIGN ? (int)(a & 3) : 0;
+          const uint32_t* span = reinterpret_cast<const uint32_t*>(a - sh);
+          const int span_words = (sh + d + 3) >> 2;
+          sel[jj] = 0x3210u + 0x1111u * (uint32_t)sh;
 #pragma unroll
-          for (int k = 0; k < kK; ++k) {
-            const int wi = w0 + k * 32 + lane;
-            if (j0 + jj < jend && wi < words) ld_nc(v[jj][k], row + wi);
+          for (int t = 0; t < kSlots; ++t) {
+            const int wi = w0 + t * lpr + sub;
+            if (live && j0 + jj < jend && wi < span_words && (t < kK || sub == 0))
+              asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];\n"
+                           : "=r"(v[jj][t]) : "l"(span + wi));
           }
         }
 #pragma unroll
         for (int jj = 0; jj < kJ; ++jj) {
           if (j0 + jj < jend) {
 #pragma unroll
-            for (int k = 0; k < kK; ++k)
-#pragma unroll
-              for (int e = 0; e < V; ++e) {
-                const int qv = byte_of(v[jj][k], e);
-                if constexpr (SUMMEAN) {
-                  acc[k][e] += qv;
-                } else if constexpr (std::is_same<OutT, float>::value) {
-                  acc[k][e] = __fmaf_rn((float)qv, scale_dt[k][e], acc[k][e]);
-                } else {
-                  acc[k][e] = __fadd_rn(acc[k][e], widen(round_out(
-                      __fmul_rn((float)qv, scale_dt[k][e]), (OutT*)nullptr)));
-                }
+            for (int k = 0; k < kK; ++k) {
+              uint32_t x = v[jj][k];
+              if constexpr (REALIGN) {
+                const uint32_t next = __shfl_sync(0xffffffffu, sub == 0 ? v[jj][k + 1] : x,
+                                                  (sub + 1) & (lpr - 1), lpr);
+                x = prmt(x, next, sel[jj]);
               }
+              float fac[4] = {};
+              if constexpr (!SUMMEAN) {
+                const float4 f = ld_shared(&my_fac[k][lane]);
+                fac[0] = f.x, fac[1] = f.y, fac[2] = f.z, fac[3] = f.w;
+              }
+              add_word<SUMMEAN, kBf16>(x, acc[k], fac);
+            }
           }
+        }
+      }
+      if constexpr (LONG) {
+        if (jb + lpr - chunk_start == chunk || jb + lpr >= fanout) {
+          const int bias = 128 * (min(jb + lpr, fanout) - chunk_start);
+#pragma unroll
+          for (int k = 0; k < kK; ++k) {
+#pragma unroll
+            for (int a = 0; a < 2; ++a) {
+              wide[k][2 * a] += (int)(acc[k][a] & 0xffffu) - bias;
+              wide[k][2 * a + 1] += (int)(acc[k][a] >> 16) - bias;
+              acc[k][a] = 0;
+            }
+          }
+          chunk_start = jb + lpr;
         }
       }
     }
     const float recip = __frcp_rn((float)fanout);
 #pragma unroll
     for (int k = 0; k < kK; ++k) {
-      const int wi = w0 + k * 32 + lane;
-      if (wi < words) {
-        float m[V];
+      const int c0 = 4 * (w0 + k * lpr + sub);
+      if (live && c0 < d) {
+        float m[4];
 #pragma unroll
-        for (int e = 0; e < V; ++e) {
+        for (int e = 0; e < 4; ++e) {
           if constexpr (SUMMEAN) {
-            m[e] = __fmul_rn((float)acc[k][e], __fmul_rn(scale[wi * V + e], recip));
+            const int s = LONG ? wide[k][e]
+                               : (int)((acc[k][e >> 1] >> (16 * (e & 1))) & 0xffffu) -
+                                     128 * fanout;
+            m[e] = c0 + e < d ? __fmul_rn((float)s, __fmul_rn(scale[c0 + e], recip)) : 0.f;
           } else {
             m[e] = __fmul_rn(acc[k][e], recip);
           }
         }
-        if constexpr (V == 1) {
-          dst[wi] = round_out(m[0], (OutT*)nullptr);
-        } else {  // V even: a word's outputs start at an even element
+        if ((d & 1) == 0) {  // d even: the pairs' outputs start at even elements
 #pragma unroll
-          for (int e = 0; e < V; e += 2) store_pair(dst + wi * V + e, m[e], m[e + 1]);
+          for (int e = 0; e < 4; e += 2)
+            if (c0 + e < d) store_pair(dst + c0 + e, m[e], m[e + 1]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c0 + e < d) dst[c0 + e] = round_out(m[e], (OutT*)nullptr);
         }
       }
     }
   }
 }
 
-template <int V, int SUMMEAN, typename OutT>
-void launch_int8(const void* table, const void* ids, const void* scale, void* out,
-                 int64_t n_table, int64_t n_roots, int d, int fanout, cudaStream_t s) {
-  const unsigned blocks = (unsigned)((n_roots + kWarps - 1) / kWarps);
-  gather_fanout_mean_int8_kernel<V, SUMMEAN, OutT><<<blocks, kWarps * 32, 0, s>>>(
-      (const int8_t*)table, (const int32_t*)ids, (const float*)scale, (OutT*)out, n_table,
-      n_roots, d, fanout);
-}
-
-template <int V>
-int launch_int8_mode(const void* table, const void* ids, const void* scale, void* out,
-                     int64_t n_table, int64_t n_roots, int d, int fanout, int out_bf16,
-                     int summean, cudaStream_t s) {
-  if (summean && out_bf16)
-    launch_int8<V, 1, __nv_bfloat16>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
-  else if (summean)
-    launch_int8<V, 1, float>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
-  else if (out_bf16)
-    launch_int8<V, 0, __nv_bfloat16>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+template <int SUMMEAN, typename OutT, bool LONG>
+int launch_int8(const void* table, const void* ids, const void* scale, void* out,
+                int64_t n_table, int64_t n_roots, int d, int fanout, int realign,
+                int lanes_per_row, int chunk, cudaStream_t s) {
+  const int64_t roots_per_block = (int64_t)kWarps * (32 / lanes_per_row);
+  const unsigned blocks = (unsigned)((n_roots + roots_per_block - 1) / roots_per_block);
+#define TSG_INT8(RE)                                                                        \
+  gather_fanout_mean_int8_kernel<SUMMEAN, OutT, LONG, RE><<<blocks, kWarps * 32, 0, s>>>(   \
+      (const int8_t*)table, (const int32_t*)ids, (const float*)scale, (OutT*)out, n_table, \
+      n_roots, d, fanout, lanes_per_row, chunk)
+  if (realign)
+    TSG_INT8(true);
   else
-    launch_int8<V, 0, float>(table, ids, scale, out, n_table, n_roots, d, fanout, s);
+    TSG_INT8(false);
+#undef TSG_INT8
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scale: (d,) f32 per-column scales. vec: bytes per word, the widest of 16,
-// 8, 4, 2, 1 that divides d and the table's base address; out (n_roots, d)
-// bf16 (out_bf16 = 1) or f32, its base 8-byte aligned.
+// scale: (d,) f32 per-column scales; out (n_roots, d) bf16 (out_bf16 = 1) or
+// f32, its base 8-byte aligned. realign, lanes_per_row and chunk are
+// kernels/gather_mean.py::int8_plan's: whether rows may start off 4-byte
+// alignment (d or the table's base not a multiple of 4), lanes a root (8, 16
+// or 32), and, in summean, the rows a packed sum takes before it folds into
+// int32 sums (at most 256, and a multiple of lanes_per_row below the
+// fanout; the fanout itself in the dequantize modes).
 extern "C" int tsg_gather_fanout_mean_int8(const void* table, const void* ids,
                                            const void* scale, void* out, long long n_table,
                                            long long n_roots, int d, int fanout, int out_bf16,
-                                           int summean, int vec, void* stream) {
+                                           int summean, int realign, int lanes_per_row,
+                                           int chunk, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (vec) {
-    case 16: return launch_int8_mode<16>(table, ids, scale, out, n_table, n_roots, d, fanout,
-                                         out_bf16, summean, s);
-    case 8: return launch_int8_mode<8>(table, ids, scale, out, n_table, n_roots, d, fanout,
-                                       out_bf16, summean, s);
-    case 4: return launch_int8_mode<4>(table, ids, scale, out, n_table, n_roots, d, fanout,
-                                       out_bf16, summean, s);
-    case 2: return launch_int8_mode<2>(table, ids, scale, out, n_table, n_roots, d, fanout,
-                                       out_bf16, summean, s);
-    case 1: return launch_int8_mode<1>(table, ids, scale, out, n_table, n_roots, d, fanout,
-                                       out_bf16, summean, s);
-    default: return (int)cudaErrorInvalidValue;
+  if ((lanes_per_row != 8 && lanes_per_row != 16 && lanes_per_row != 32) || chunk < 1 ||
+      (!realign && (d % 4 || reinterpret_cast<uintptr_t>(table) % 4)))
+    return (int)cudaErrorInvalidValue;
+  const bool long_f = chunk < fanout;
+  if (summean ? (chunk > kInt8Chunk || (long_f && chunk % lanes_per_row)) : long_f)
+    return (int)cudaErrorInvalidValue;
+#define TSG_INT8_MODE(SM, T, L)                                                             \
+  return launch_int8<SM, T, L>(table, ids, scale, out, n_table, n_roots, d, fanout, realign, \
+                               lanes_per_row, chunk, s)
+  if (summean && out_bf16) {
+    if (long_f) TSG_INT8_MODE(1, __nv_bfloat16, true);
+    TSG_INT8_MODE(1, __nv_bfloat16, false);
   }
+  if (summean) {
+    if (long_f) TSG_INT8_MODE(1, float, true);
+    TSG_INT8_MODE(1, float, false);
+  }
+  if (out_bf16) TSG_INT8_MODE(0, __nv_bfloat16, false);
+  TSG_INT8_MODE(0, float, false);
+#undef TSG_INT8_MODE
 }
 
 // ---------------------------------------------------------------------------

@@ -10,8 +10,8 @@ take the ``plain`` form (``gather.plain_ids``).
 ``gather_fanout_mean_int8`` is the same pass over an int8 table with
 per-column scales (``tpu_sage/data/quantize.py::QuantizedFeats.fanout_mean``,
 XLA in the JAX package): the second entry point of ``csrc/gather_mean.cu``,
-with its own counter ``INT8_LAUNCHES`` and its plain version
-``gather_fanout_mean_int8_reference``.
+with its own counter ``INT8_LAUNCHES``, its plain version
+``gather_fanout_mean_int8_reference`` and its launch plan ``int8_plan``.
 
 ``gather_fanout_mean_owned`` is the owner side of the partitioned path's
 pre-reduced exchange (``tpu_sage/dist/halo.py::dist_gather_fanout_mean``,
@@ -42,8 +42,7 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     "tsg_gather_fanout_mean": (_P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, _P),
-    "tsg_gather_fanout_mean_int8": (_P, _P, _P, _P, _LL, _LL, ctypes.c_int, ctypes.c_int,
-                                    ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
+    "tsg_gather_fanout_mean_int8": (_P, _P, _P, _P, _LL, _LL) + (ctypes.c_int,) * 7 + (_P,),
     "tsg_gather_fanout_mean_owned": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, ctypes.c_int,
                                      ctypes.c_int, ctypes.c_int, _P),
 }
@@ -106,14 +105,52 @@ def gather_fanout_mean(table: torch.Tensor, ids: torch.Tensor, fanout: int) -> t
 
 
 def int8_word_bytes(q: torch.Tensor) -> int:
-    """Bytes per word the int8 kernel reads a row in: the widest of 16, 8, 4,
-    2 and 1 that divides the row width and the table's address. A 602-wide
-    row moves as 301 two-byte words."""
+    """Bytes per word the owner-masked kernel reads an int8 row in: the
+    widest of 16, 8, 4, 2 and 1 that divides the row width and the table's
+    address. A 602-wide row moves as 301 two-byte words."""
     d = q.shape[1]
     for v in (16, 8, 4, 2):
         if d % v == 0 and q.data_ptr() % v == 0:
             return v
     return 1
+
+
+INT8_CHUNK = 256  # rows a packed 16-bit sum of biased bytes holds: 255 * 256 < 2^16
+INT8_WORDS_PER_LANE = 5  # 4-byte column words a lane a pass (csrc: kInt8Words)
+
+
+def int8_plan(d: int, base_mod16: int, fanout: int, out_dtype: torch.dtype,
+              summean: bool) -> dict:
+    """The int8 fanout mean's launch plan, a pure function of the row width
+    ``d``, the table's address mod 16, the fanout and the mode:
+
+    - ``word``: bytes per load. Every row is read as the aligned 4-byte
+      words that cover it; ``realign`` when a row may start off 4-byte
+      alignment (``d`` or the address not a multiple of 4, as for the
+      602-byte rows), and then each 4-byte column word is one ``prmt`` of
+      two loaded words; ``words_per_lane`` column words a lane a pass;
+    - ``lanes_per_row``: lanes a root, the fewest of 8, 16 and 32 whose
+      words cover the row in one pass (32 for 602 bytes; up to 4 roots a
+      warp for rows of at most 160 bytes);
+    - ``arith``: ``"packed int32"`` (summean: the bytes biased by 128, two
+      columns' sums in the 16-bit lanes of one register), ``"magic
+      bf16x2"`` or ``"magic fma"`` (dequantize then mean into bf16 or f32:
+      the conversion without a conversion instruction, then one
+      ``mul.rn.bf16x2`` or one FMA);
+    - ``chunk``: in summean, the rows summed before the packed lanes fold
+      into int32 sums, ``min(fanout, INT8_CHUNK)``; else the fanout."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    lanes = 8
+    while lanes < 32 and lanes * INT8_WORDS_PER_LANE < -(-d // 4):
+        lanes *= 2
+    if summean:
+        arith = "packed int32"
+    else:
+        arith = "magic bf16x2" if out_dtype == torch.bfloat16 else "magic fma"
+    return {"word": 4, "realign": d % 4 != 0 or base_mod16 % 4 != 0,
+            "words_per_lane": INT8_WORDS_PER_LANE, "lanes_per_row": lanes, "arith": arith,
+            "chunk": min(fanout, INT8_CHUNK) if summean else fanout}
 
 
 def reciprocal(fanout: int) -> float:
@@ -183,10 +220,11 @@ def gather_fanout_mean_int8(q: torch.Tensor, scale: torch.Tensor, ids: torch.Ten
         return out
     if n == 0:
         raise ValueError("cannot gather from an empty table")
+    plan = int8_plan(d, q.data_ptr() % 16, fanout, out_dtype, summean)
     lib = library("gather_mean", _SIGNATURES)
     launch(lib.tsg_gather_fanout_mean_int8, q.data_ptr(), ids.data_ptr(), scale.data_ptr(),
            out.data_ptr(), n, r, d, fanout, int(out_dtype == torch.bfloat16), int(summean),
-           int8_word_bytes(q), device=q.device)
+           int(plan["realign"]), plan["lanes_per_row"], plan["chunk"], device=q.device)
     INT8_LAUNCHES += 1
     return out
 
