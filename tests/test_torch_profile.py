@@ -30,9 +30,15 @@ def test_trace_is_written_on_the_cpu(tmp_path):
     with open(os.path.join(str(tmp_path), "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any("aten::" in e.get("name", "") for e in events)
+    step = out["spans"]["tsg.train.step"]
+    assert step["count"] == 2 and step["edges"] == 2 * edges_per_batch(32, (5, 3))
+    assert step["device_ms"] is None and step["host_ms"] > 0
+    assert {"tsg.train.sample", "tsg.train.forward", "tsg.train.backward",
+            "tsg.train.optimizer"} <= set(out["spans"])
     untraced = profile_steps(str(tmp_path / "none"), steps=1, batch_size=32, n_nodes=600,
                              feat_dim=16, fanouts=(5, 3), device="cpu")
     assert untraced["trace_dir"] is None and not os.path.exists(str(tmp_path / "none"))
+    assert untraced["spans"] == {}
 
 
 def test_the_plain_baseline_runs_where_it_is_told_and_says_so():

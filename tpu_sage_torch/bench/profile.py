@@ -3,7 +3,12 @@
 Times the port's ``Trainer`` steps at the main path's configuration on a
 Reddit-shaped ``bench_store`` and, with ``--trace``, records them with
 ``torch.profiler`` (CPU and CUDA activities) into a Chrome trace in the
-trace directory, readable in Perfetto or ``chrome://tracing``::
+trace directory, readable in Perfetto or ``chrome://tracing``. A traced
+run also returns ``spans``, ``tpu_sage_torch.tracing.summary()`` of the
+profiled steps: per span name (``tsg.train.step`` and its children
+``tsg.train.sample``, ``.forward``, ``.backward``, ``.optimizer``) its
+``count``, ``device_ms`` and ``self_device_ms`` (CUDA events; None on the
+CPU), ``host_ms`` and summed counters (the step's ``edges``)::
 
     python -m tpu_sage_torch.bench.profile --trace --trace-dir build/trace \\
         --compute-dtype bfloat16
@@ -37,10 +42,12 @@ def profile_steps(trace_dir: str, steps: int = 20, batch_size: int = 512,
     ending in ``torch.cuda.synchronize()`` on the card. ``trace=True``
     records them with ``torch.profiler`` and writes
     ``<trace_dir>/trace.json``. Returns ``ms_per_step``, ``trace_dir`` (None
-    without a trace), ``edges_per_sec`` and the device's name."""
+    without a trace), ``edges_per_sec``, the device's name and ``spans``
+    (the traced steps' ``tracing.summary()``; empty without a trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from tpu_sage_torch import tracing
     from tpu_sage_torch.data.problem import NodeProblem
     from tpu_sage_torch.data.synthetic import bench_store
     from tpu_sage_torch.train.trainer import COMPUTE_DTYPES, TrainConfig, Trainer, build_model
@@ -72,6 +79,7 @@ def profile_steps(trace_dir: str, steps: int = 20, batch_size: int = 512,
     state, _ = trainer.train_step(state, graph, ids, tgt)  # kernels built and loaded
     sync()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    tracing.reset()
     with profile(activities=activities) if trace else contextlib.nullcontext() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -86,7 +94,8 @@ def profile_steps(trace_dir: str, steps: int = 20, batch_size: int = 512,
     return {"ms_per_step": dt / steps * 1e3,
             "trace_dir": trace_dir if trace else None,
             "edges_per_sec": edges_per_batch(batch_size, fanouts) / (dt / steps),
-            "device": torch.cuda.get_device_name(device) if on_card else "cpu"}
+            "device": torch.cuda.get_device_name(device) if on_card else "cpu",
+            "spans": tracing.summary()}
 
 
 def main(argv=None):

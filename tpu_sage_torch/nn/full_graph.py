@@ -47,6 +47,10 @@ activations stay sharded, and each layer fetches each chunk's
 which no rank owns, and come back as zero rows), then combines them as
 above. Every rank walks its ``m`` rows in the same chunks, so the exchanges
 line up.
+
+Under ``torch.profiler`` both passes record spans (``tracing.py``): the
+pass, the prep, each layer, the pools' projected table, and per chunk the
+gather, the neighbour summary and the products.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from typing import Optional
 
 import torch
 
+from tpu_sage_torch import tracing
 from tpu_sage_torch.data.quantize import QuantizedFeats
 from tpu_sage_torch.graph.graph_data import DeviceGraph
 from tpu_sage_torch.nn.aggregators import GCNAggregator
@@ -103,8 +108,9 @@ def _neighbor_table(model: GSSupervised, layer_idx: int, h: torch.Tensor) -> tor
     """What a layer gathers per neighbor: the pools' ``relu(mlp(h))`` for
     every node, else ``h`` itself."""
     if model.aggregator_class in ("max_pool", "mean_pool"):
-        mlp = model.agg_layers[layer_idx].mlp
-        return torch.relu(_dense(h, mlp.kernel, mlp.bias))
+        with tracing.span("tsg.exact.table", h.device):
+            mlp = model.agg_layers[layer_idx].mlp
+            return torch.relu(_dense(h, mlp.kernel, mlp.bias))
     return h
 
 
@@ -115,8 +121,17 @@ def _chunk_combine(model: GSSupervised, layer_idx: int, neigh: torch.Tensor,
     (chunk, max_degree, w)`` of the layer's neighbor table, zero past each
     node's degree ``d_chunk``; ``src_self`` is the chunk's own rows of that
     table (degree-0 nodes self-loop through them)."""
-    agg_name = model.aggregator_class
     agg = model.agg_layers[layer_idx]
+    with tracing.span("tsg.exact.reduce", neigh.device):
+        summary = _chunk_summary(model, agg, neigh, d_chunk, h_self, src_self)
+    with tracing.span("tsg.exact.combine", neigh.device):
+        return _combine_with_params(agg, h_self, summary)
+
+
+def _chunk_summary(model: GSSupervised, agg, neigh: torch.Tensor, d_chunk: torch.Tensor,
+                   h_self: torch.Tensor, src_self: torch.Tensor) -> torch.Tensor:
+    """The neighbor summary of ``_chunk_combine``, before the products."""
+    agg_name = model.aggregator_class
     if agg_name not in EXACT_AGGREGATORS:
         raise ValueError(f"full-graph inference unsupported for {agg_name}")
     mask = torch.arange(neigh.shape[1], device=neigh.device) < d_chunk[:, None]
@@ -142,26 +157,42 @@ def _chunk_combine(model: GSSupervised, layer_idx: int, neigh: torch.Tensor,
         scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
         alpha = torch.softmax(scores, dim=-1)
         summary = torch.where(isolated, h_self, (alpha[:, None, :] @ x)[:, 0])
-    return _combine_with_params(agg, h_self, summary)
+    return summary
+
+
+def _gather_local(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``(rows, max_degree, w)`` rows of ``src`` for ``ids (rows,
+    max_degree)``; id -1 gives a zero row."""
+    return row_gather(src, ids, form="masked")
+
+
+def _gather_halo(src: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``_gather_local`` over a node-sharded ``src``: the exact halo exchange."""
+    from tpu_sage_torch.dist.halo import dist_gather
+
+    return dist_gather(src, ids.reshape(-1)).view(ids.shape[0], ids.shape[1], -1)
 
 
 def _layer_full(model: GSSupervised, layer_idx: int, h: torch.Tensor, graph: DeviceGraph,
-                chunk: int) -> torch.Tensor:
-    """Aggregation layer ``layer_idx`` applied to every node; ``h (n, d)``."""
+                chunk: int, gather=_gather_local) -> torch.Tensor:
+    """Aggregation layer ``layer_idx`` applied to every node; ``h (n, d)``;
+    each chunk's neighbor rows from ``gather(src, ids)``."""
     n, max_deg = graph.adj.shape
-    cols = torch.arange(max_deg, dtype=torch.int32, device=h.device)
-    src = _neighbor_table(model, layer_idx, h)
-    out = None
-    for start in range(0, n, chunk):
-        adj = graph.adj[start:start + chunk]
-        deg = graph.degrees[start:start + chunk]
-        neigh = row_gather(src, torch.where(cols < deg[:, None], adj, -1), form="masked")
-        res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk],
-                             src[start:start + chunk])
-        del neigh
-        if out is None:
-            out = torch.empty((n, res.shape[1]), dtype=res.dtype, device=res.device)
-        out[start:start + chunk] = res
+    with tracing.span("tsg.exact.layer", h.device):
+        cols = torch.arange(max_deg, dtype=torch.int32, device=h.device)
+        src = _neighbor_table(model, layer_idx, h)
+        out = None
+        for start in range(0, n, chunk):
+            adj = graph.adj[start:start + chunk]
+            deg = graph.degrees[start:start + chunk]
+            with tracing.span("tsg.exact.gather", h.device):
+                neigh = gather(src, torch.where(cols < deg[:, None], adj, -1))
+            res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk],
+                                 src[start:start + chunk])
+            del neigh
+            if out is None:
+                out = torch.empty((n, res.shape[1]), dtype=res.dtype, device=res.device)
+            out[start:start + chunk] = res
     return out
 
 
@@ -195,8 +226,10 @@ def embed_all_nodes(model: GSSupervised, graph: DeviceGraph, chunk: int = 4096,
     """Exact embeddings ``(n, D)`` (or logits with ``with_head``) for all
     nodes of ``graph``, in f32, on the graph's device."""
     _check_exact_supported(model)
-    with torch.inference_mode():
-        h = _prep_table(model, _dense_feats(graph))
+    dev = graph.adj.device
+    with torch.inference_mode(), tracing.span("tsg.exact.pass", dev):
+        with tracing.span("tsg.exact.prep", dev):
+            h = _prep_table(model, _dense_feats(graph))
         for layer_idx in range(len(model.layer_specs)):
             h = _layer_full(model, layer_idx, h, graph, chunk)
         if model.normalize:
@@ -212,37 +245,24 @@ def embed_all_nodes_partitioned(model: GSSupervised, graph: DeviceGraph, chunk: 
     f32, from its shard ``graph`` (``dist/partition.py::shard_graph``,
     ``train=False``), run by every rank of the process group. Rows past the
     store's node count are partition padding."""
-    from tpu_sage_torch.dist.halo import dist_gather
     from tpu_sage_torch.dist.mesh import rank, world
 
     _check_exact_supported(model)
-    with torch.inference_mode():
-        m, max_deg = graph.adj.shape
-        h = _dense_feats(graph)
-        if model.prep_class == "node_embedding":
-            table = model.prep.embedding.embedding
-            pad = world() * m - table.shape[0]
-            if pad > 0:
-                table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
-            h = torch.cat([h, table[rank() * m:(rank() + 1) * m]], dim=-1)
-        else:
-            h = _prep_table(model, h)
-        cols = torch.arange(max_deg, dtype=torch.int32, device=h.device)
+    m = graph.adj.shape[0]
+    dev = graph.adj.device
+    with torch.inference_mode(), tracing.span("tsg.exact.pass", dev):
+        with tracing.span("tsg.exact.prep", dev):
+            h = _dense_feats(graph)
+            if model.prep_class == "node_embedding":
+                table = model.prep.embedding.embedding
+                pad = world() * m - table.shape[0]
+                if pad > 0:
+                    table = torch.cat([table, table.new_zeros((pad, table.shape[1]))])
+                h = torch.cat([h, table[rank() * m:(rank() + 1) * m]], dim=-1)
+            else:
+                h = _prep_table(model, h)
         for layer_idx in range(len(model.layer_specs)):
-            src = _neighbor_table(model, layer_idx, h)
-            out = None
-            for start in range(0, m, chunk):
-                adj = graph.adj[start:start + chunk]
-                deg = graph.degrees[start:start + chunk]
-                ids = torch.where(cols < deg[:, None], adj, -1).reshape(-1)
-                neigh = dist_gather(src, ids).view(adj.shape[0], max_deg, -1)
-                res = _chunk_combine(model, layer_idx, neigh, deg, h[start:start + chunk],
-                                     src[start:start + chunk])
-                del neigh
-                if out is None:
-                    out = torch.empty((m, res.shape[1]), dtype=res.dtype, device=res.device)
-                out[start:start + chunk] = res
-            h = out
+            h = _layer_full(model, layer_idx, h, graph, chunk, gather=_gather_halo)
         if model.normalize:
             h = _l2_normalize(h)
         if with_head:

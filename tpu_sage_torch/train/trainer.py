@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from tpu_sage_torch import tracing
 from tpu_sage_torch.graph.graph_data import CSRDeviceGraph, DeviceGraph
 from tpu_sage_torch.nn.full_graph import embed_all_nodes, exact_supported
 from tpu_sage_torch.nn.model import GSSupervised, default_layer_specs
@@ -253,20 +254,29 @@ class Trainer:
     ) -> Tuple[TrainState, Dict[str, Any]]:
         """One optimizer step on a batch. ``levels`` injects a sampled tree
         (parity tests); by default the tree is sampled from ``graph``."""
-        lr = self._lr_fn(state.step)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        if levels is None:
-            levels = graph_sample_tree(graph, ids, self.model.fanouts(train=True),
-                                       generator=state.generator)
-        state.optimizer.zero_grad(set_to_none=True)
-        logits = self.model(levels, graph.feats)
-        loss = self.loss_fn(logits, targets)
-        loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        logits = logits.detach()
-        return state, {"loss": loss.detach(), "metric": self.metric_fn(logits, targets), "lr": lr}
+        dev = ids.device
+        with tracing.span("tsg.train.step", dev):
+            lr = self._lr_fn(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            if levels is None:
+                with tracing.span("tsg.train.sample", dev):
+                    levels = graph_sample_tree(graph, ids, self.model.fanouts(train=True),
+                                               generator=state.generator)
+            if tracing.enabled():
+                tracing.count(edges=sum(level.numel() for level in levels[1:]))
+            state.optimizer.zero_grad(set_to_none=True)
+            with tracing.span("tsg.train.forward", dev):
+                logits = self.model(levels, graph.feats)
+                loss = self.loss_fn(logits, targets)
+            with tracing.span("tsg.train.backward", dev):
+                loss.backward()
+            with tracing.span("tsg.train.optimizer", dev):
+                state.optimizer.step()
+            state.step += 1
+            logits = logits.detach()
+            metric = self.metric_fn(logits, targets)
+        return state, {"loss": loss.detach(), "metric": metric, "lr": lr}
 
     def train_epoch(
         self,
