@@ -8,7 +8,7 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the twelve kernels from
+2. build: compiles the CUDA sources of the thirteen kernels from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
@@ -64,7 +64,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tpu_sage_torch.export.main`` writes f16 logits from the best file
    (232,965 × 41, finite, scoring the val fold as the best file's metric);
    each with the launch counters from 0: training launches every main-path
-   kernel, the export ``gather_rows`` 2 × 57 times and nothing else; prints
+   kernel (and the exact validation ``neighbor_mean``), the export
+   ``gather_rows`` and ``neighbor_mean`` 2 × 57 times each and nothing
+   else; prints
    the ms per exact pass on the f32 and bf16 tables, nodes/s, the gathers'
    bound and a profile of one pass, after the card's name and power limit;
 7. the other aggregators and preps: ``gather_rows`` and ``sample_hop``
@@ -79,7 +81,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and timed at the max-pool cell's (4,096, 128, 512) f32 chunk, every degree
    full, beside its library call (the ``masked_fill_`` + ``amax`` + ``where``
    it replaced) and ``amax`` alone, and at degrees 0-128, bf16, the ragged
-   last chunk, a strided view and element loads; then training runs whose launches per step must be exact
+   last chunk, a strided view and element loads; ``neighbor_mean`` (the
+   mean, gcn and mean_pool exact summary) bitwise against its
+   same-order plain version and timed at the mean cell's (4,096, 128,
+   602) and (4,096, 128, 256) f32 chunks, every degree full, beside its
+   library call (the sum, division and ``where`` it replaced) and the sum
+   alone, and at 602-wide bf16 with degrees 0-128, the ragged last chunk,
+   a strided view and element loads; then training runs whose launches per step must be exact
    (gcn, max_pool, mean_pool and attention at phase 5's configuration,
    ``agg_hidden_dim`` 512, and gcn again on a Reddit-shaped SBM store, where
    it learns; ``configs/pubmed_maxpool.json`` and
@@ -311,6 +319,9 @@ SOURCES = {
     "neighbor_max": ("tpu_sage_torch/kernels/csrc/neighbor_max.cu",
                      "no Pallas kernel: XLA's masked max of tpu_sage/nn/full_graph.py:69-70 "
                      "(the max pool's exact summary)"),
+    "neighbor_mean": ("tpu_sage_torch/kernels/csrc/neighbor_mean.cu",
+                      "no Pallas kernel: XLA's masked sum and division of "
+                      "tpu_sage/nn/full_graph.py (the mean, gcn and mean_pool exact summary)"),
 }
 
 
@@ -328,7 +339,7 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=Fa
     levels' raw rows gathered in its backward, and layer 2's one
     ``mean_project``."""
     hops = {"sample_hop": 0 if csr else 2, "sample_hop_csr": 0, "csr_tree": int(csr),
-            "select_columns": 0, "select_hop": 0, "neighbor_max": 0}
+            "select_columns": 0, "select_hop": 0, "neighbor_max": 0, "neighbor_mean": 0}
     if fuse_first and agg == "mean" and prep == "identity":
         return {"gather_rows": 6, "gather_rows_blockspec": 0,
                 "gather_fanout_mean": 2, "mean_project": 1, "gather_fanout_mean_int8": 0,
@@ -363,7 +374,8 @@ def dist_per_step(mode, world):
             "gather_rows": hops + 2 * per + deepest_rows,
             "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
             "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
-            "gather_fanout_mean_owned": 0 if mode == "bucketed" else per, "neighbor_max": 0}
+            "gather_fanout_mean_owned": 0 if mode == "bucketed" else per, "neighbor_max": 0,
+            "neighbor_mean": 0}
 
 
 PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
@@ -1313,8 +1325,8 @@ def serving_path(torch, np, smi, peaks, tmp):
     vals = [r["val_metric"] for r in recs if "val_metric" in r]
     if epochs != [[0, 1], [2]] or not vals or not all(0.0 <= v <= 1.0 for v in vals):
         raise AssertionError(f"CLI epochs {epochs}, val metrics {vals}")
-    for name, n in fit_counts.items():
-        if (n == 0) != (PER_STEP[name] == 0):
+    for name, n in fit_counts.items():  # the exact validation's summaries: neighbor_mean
+        if (n == 0) != (PER_STEP[name] == 0 and name != "neighbor_mean"):
             raise AssertionError(f"CLI training launched {name} {n} times")
     log(f"  CLI: 2 epochs, then resumed at epoch 2 from {recs[resumed[0]]['resumed_from']!r}; "
         f"exact val metrics {[round(v, 4) for v in vals]}; launches {fit_counts}")
@@ -1330,9 +1342,10 @@ def serving_path(torch, np, smi, peaks, tmp):
     export_s = time.perf_counter() - t0
     export_counts = kernels.launch_counts()
     n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
-    if export_counts != {**{k: 0 for k in export_counts}, "gather_rows": 2 * n_chunks}:
-        raise AssertionError(f"export launches {export_counts}, expected gather_rows "
-                             f"2 x {n_chunks} and nothing else")
+    if export_counts != {**{k: 0 for k in export_counts}, "gather_rows": 2 * n_chunks,
+                         "neighbor_mean": 2 * n_chunks}:
+        raise AssertionError(f"export launches {export_counts}, expected gather_rows and "
+                             f"neighbor_mean 2 x {n_chunks} each and nothing else")
     arr = np.load(out)
     if arr.shape != (SERVING_NODES, 41) or arr.dtype != np.float16 or not np.isfinite(arr).all():
         raise AssertionError(f"exported logits {arr.shape} {arr.dtype}, finite "
@@ -1362,7 +1375,8 @@ def serving_path(torch, np, smi, peaks, tmp):
     log(smi)
     log(json.dumps({"serving_path": {
         "nodes": problem.n_nodes, "chunk": EXACT_CHUNK, "chunks_per_layer": n_chunks,
-        "gather_rows_launches_per_pass": 2 * n_chunks, "exact_pass": passes,
+        "gather_rows_launches_per_pass": 2 * n_chunks,
+        "neighbor_mean_launches_per_pass": 2 * n_chunks, "exact_pass": passes,
         "export_wall_s": export_s, "cli_fit_wall_s_both_runs": fit_s}}))
     return {"cli_fit": fit_counts, "export": export_counts}
 
@@ -1663,6 +1677,78 @@ def neighbor_max_cases(torch, peaks):
     return results
 
 
+def neighbor_mean_cases(torch, peaks):
+    """Phase 7 (c''): ``neighbor_mean`` bitwise against its same-order plain
+    version and timed (weight 0: the exact pass, not a training step)
+    at the mean cell's chunks, 4,096 nodes × 128 neighbours × 602 and 256
+    f32 features, every degree full, with the parent's sum + division +
+    ``where`` (and the mask lines it built) as its library call and the sum
+    alone logged beside it, with the largest gap to that call relative to
+    the mean of |x|; then 602-wide bf16 at degrees 0-128, the cell's ragged
+    last chunk (232,965 mod 4,096 nodes), a half-width strided view and
+    element loads (13-wide f32 rows). Bytes: each true row read once, each
+    summary written once, the degrees, the self rows of degree-0 nodes."""
+    from tpu_sage_torch.bench.timing import cuda_ms
+    from tpu_sage_torch.kernels import neighbor_mean as nmean
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    deg_max = 128
+
+    def parents(neigh, degrees, self_rows):
+        torch.arange(neigh.shape[1], device=neigh.device) < degrees[:, None]  # built, unused
+        isolated = degrees[:, None] == 0
+        denom = degrees.clamp_min(1)[:, None].to(neigh.dtype)
+        summary = neigh.sum(dim=1, dtype=torch.float32).to(neigh.dtype) / denom
+        return torch.where(isolated, self_rows, summary)
+
+    def inputs(rows, width, dtype, full):
+        neigh = torch.randn((rows, deg_max, width), generator=gen, device="cuda")
+        degrees = (torch.full((rows,), deg_max, dtype=torch.int32, device="cuda") if full
+                   else torch.randint(0, deg_max + 1, (rows,), generator=gen,
+                                      dtype=torch.int32, device="cuda"))
+        past = torch.arange(deg_max, device="cuda") >= degrees[:, None]
+        neigh = neigh.masked_fill_(past[:, :, None], 0.0).to(dtype)
+        return neigh, degrees, torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
+
+    cases, gaps = [], {}
+
+    def add(case, neigh, degrees, self_rows, library=True):
+        eb, w = neigh.element_size(), neigh.shape[2]
+        nbytes = (int(degrees.clamp(0, neigh.shape[1]).sum()) * w * eb
+                  + int((degrees == 0).sum()) * w * eb + neigh.shape[0] * (w * eb + 4))
+        label = f"{case} {str(neigh.dtype)[6:]} {tuple(neigh.shape)}"
+        if library and neigh.dtype == torch.float32:
+            scale = neigh.abs().sum(dim=1) / degrees.clamp_min(1)[:, None]
+            gap = (nmean.neighbor_mean(neigh, degrees, self_rows)
+                   - parents(neigh, degrees, self_rows)).abs() / scale.clamp_min(1e-30)
+            gaps[label] = float(gap.max())
+        cases.append(kernel_case(
+            "neighbor_mean", label,
+            lambda a=(neigh, degrees, self_rows): nmean.neighbor_mean(*a),
+            lambda a=(neigh, degrees, self_rows): nmean.neighbor_mean_ordered(*a),
+            (lambda a=(neigh, degrees, self_rows): parents(*a)) if library else None,
+            nbytes, weight=0))
+
+    sum_ms = {}
+    for width in (602, 256):
+        cell = inputs(EXACT_CHUNK, width, torch.float32, full=True)
+        add("cell chunk, every degree full", *cell)
+        sum_ms[width] = cuda_ms(lambda: cell[0].sum(dim=1, dtype=torch.float32))
+        log(f"  neighbor_mean cell chunk {width} wide: torch's sum alone {sum_ms[width]:.4f} ms "
+            f"(library call, no division or where)")
+        del cell
+    add("degrees 0-128", *inputs(EXACT_CHUNK, 602, torch.bfloat16, full=False))
+    add("ragged last chunk", *inputs(232_965 % EXACT_CHUNK, 602, torch.float32, full=True))
+    neigh, degrees, self_rows = inputs(EXACT_CHUNK, 256, torch.float32, full=False)
+    add("strided view [:, :64]", neigh[:, :64], degrees.clamp(max=64), self_rows,
+        library=False)
+    add("element loads", *inputs(EXACT_CHUNK, 13, torch.float32, full=False))
+    log(f"  neighbor_mean against the parent's sum, largest gap over the mean of |x|: {gaps}")
+    results = time_cases(torch, cases, peaks[0])
+    results[0]["sum_alone_ms"], results[1]["sum_alone_ms"] = sum_ms[602], sum_ms[256]
+    return results
+
+
 def phase_aggregators(torch, np, problem, graph, levels, smi, peaks):
     """Phase 7: the other aggregators and preps. (a) kernels at their new
     shapes; (b) sampled and (c) exact card against CPU; (d) training, with
@@ -1690,6 +1776,7 @@ def phase_aggregators(torch, np, problem, graph, levels, smi, peaks):
     check_sampled_card_vs_cpu(torch, problem, graph)
     check_exact_aggregators_card_vs_cpu(torch, np)
     results += neighbor_max_cases(torch, peaks)
+    results += neighbor_mean_cases(torch, peaks)
 
     total = {}
 
@@ -2175,7 +2262,7 @@ def unsup_per_step(csr=False, corpus=False, int8=False):
             "gather_fanout_mean": int(not int8), "mean_project": 2,
             "gather_fanout_mean_int8": int(int8),
             "sample_hop_csr": 0, "csr_tree": (1 + int(not corpus)) if csr else 0,
-            "gather_fanout_mean_owned": 0, "neighbor_max": 0}
+            "gather_fanout_mean_owned": 0, "neighbor_max": 0, "neighbor_mean": 0}
 
 
 def unsup_config(**kw):
@@ -2548,8 +2635,8 @@ def unsup_entry_points(torch, np):
     """Phase 9 (f): ``tpu_sage_torch.cli.main --unsupervised`` for one epoch
     on the 232,965-node Reddit-shaped store with a checkpoint (and the
     probe), ``tpu_sage_torch.export.main`` writing its f16 embeddings
-    (232,965 × 256, finite; ``gather_rows`` 2 × 57 launches and nothing
-    else), then ``--fuse-first-layer`` for one epoch; each with the launch
+    (232,965 × 256, finite; ``gather_rows`` and ``neighbor_mean`` 2 × 57
+    launches each and nothing else), then ``--fuse-first-layer`` for one epoch; each with the launch
     counters from 0."""
     import os
     import tempfile
@@ -2585,7 +2672,8 @@ def unsup_entry_points(torch, np):
                     raise AssertionError(f"exported embeddings {arr.shape} {arr.dtype}")
     n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
     if by_path["unsup_export"] != {**{k: 0 for k in by_path["unsup_export"]},
-                                   "gather_rows": 2 * n_chunks}:
+                                   "gather_rows": 2 * n_chunks,
+                                   "neighbor_mean": 2 * n_chunks}:
         raise AssertionError(f"export launches {by_path['unsup_export']}")
     for label in ("unsup_cli", "fused_cli"):
         want = unsup_per_step() if label == "unsup_cli" else FUSED_PER_STEP
@@ -3085,7 +3173,7 @@ def nce_dist_per_step(mode, world):
             "gather_rows": (4 * hops if mode == "csr" else hops * per) + 2 * per,
             "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
             "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
-            "gather_fanout_mean_owned": per, "neighbor_max": 0}
+            "gather_fanout_mean_owned": per, "neighbor_max": 0, "neighbor_mean": 0}
 
 
 def nce_config(**kw):

@@ -30,6 +30,7 @@ from tpu_sage_torch.kernels.gather_blockspec import gather_rows_blockspec
 from tpu_sage_torch.kernels.gather_mean import gather_fanout_mean, word_elements
 from tpu_sage_torch.kernels.mean_project import mean_project
 from tpu_sage_torch.kernels.neighbor_max import neighbor_max
+from tpu_sage_torch.kernels.neighbor_mean import neighbor_mean
 from tpu_sage_torch.kernels.sample_hop import sample_hop
 from tpu_sage_torch.kernels.select import select_columns
 
@@ -476,6 +477,8 @@ def test_gather_fanout_mean_word_width():
     lambda t: mean_project(t.view(2, 2, 4), torch.zeros(4, 3, device=t.device)),
     lambda t: neighbor_max(t.view(2, 2, 4), torch.zeros(2, dtype=torch.int32, device=t.device),
                            t[:2]),
+    lambda t: neighbor_mean(t.view(2, 2, 4), torch.zeros(2, dtype=torch.int32, device=t.device),
+                            t[:2]),
 ])
 def test_wrappers_refuse_devices_other_than_cuda_and_cpu(call):
     """Plain versions run only for CPU tensors; anything else must reach the
@@ -525,7 +528,7 @@ def test_every_kernel_source_notes_what_it_replaces_and_its_bound():
         assert f'extern "C" int {entry}' in text and "cudaGetLastError()" in text
         assert lib.startswith(_build.BUILD_DIR) and os.path.basename(lib).startswith(f"lib{name}_")
     assert set(_build.SOURCES) == {"select", "gather", "gather_mean", "mean_project",
-                                   "neighbor_max"}
+                                   "neighbor_max", "neighbor_mean"}
 
 
 def test_mean_project_source_streams_x_asynchronously_and_uses_tensor_cores():

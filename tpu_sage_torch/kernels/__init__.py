@@ -1,5 +1,5 @@
 """Hand-written CUDA kernels for Hopper: one per TPU kernel of the JAX package,
-and the max-pool summary of the exact pass, which the JAX package left to XLA.
+and the exact pass's max and mean summaries, which the JAX package left to XLA.
 
 =====================  ==================================================  ====================
 port module            replaces (JAX package)                              CUDA source
@@ -17,6 +17,9 @@ port module            replaces (JAX package)                              CUDA 
 ``mean_project``       ``kernels/mean_project.py::mean_project``           ``csrc/mean_project.cu``
 ``neighbor_max``       no Pallas kernel: XLA's masked max of the max-pool  ``csrc/neighbor_max.cu``
                        summary in ``nn/full_graph.py`` (the exact pass)
+``neighbor_mean``      no Pallas kernel: XLA's masked sum and division of  ``csrc/neighbor_mean.cu``
+                       the mean, gcn and mean_pool summaries in
+                       ``nn/full_graph.py`` (the exact pass)
 =====================  ==================================================  ====================
 
 ``gather_mean`` also holds the owner side of the partitioned path's
@@ -38,7 +41,7 @@ trees and walks ``csr_tree``.
 
 ``probe()`` is the counterpart of the JAX package's
 ``tpu_sage/kernels/__init__.py::probe``: it builds every source, then in a
-subprocess under a timeout launches each of the twelve kernels once against
+subprocess under a timeout launches each of the thirteen kernels once against
 its plain version. It is a health check and switches nothing: no path reads it.
 The JAX package's ``PALLAS_ENABLED`` flag has no counterpart, because the
 port's kernels are always on for CUDA tensors.
@@ -51,7 +54,7 @@ import subprocess
 import sys
 
 from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
-                                    neighbor_max, sample_hop, select)
+                                    neighbor_max, neighbor_mean, sample_hop, select)
 
 KERNEL_MODULES = {
     "select_columns": select,
@@ -66,6 +69,7 @@ KERNEL_MODULES = {
     "select_hop": select,
     "csr_tree": sample_hop,
     "neighbor_max": neighbor_max,
+    "neighbor_mean": neighbor_mean,
 }
 COUNTERS = {name: "LAUNCHES" for name in KERNEL_MODULES}  # each kernel's counter
 COUNTERS.update(gather_fanout_mean_int8="INT8_LAUNCHES", sample_hop_csr="CSR_LAUNCHES",
@@ -89,7 +93,7 @@ def probe(timeout: float = 90.0) -> bool:
     minutes and is not what the timeout guards), then runs
     ``kernels/_probe.py`` in a subprocess killed after ``timeout`` seconds,
     so a hung launch cannot take the caller down. True only if each of the
-    twelve kernels launched once and matched; False with no card, no ``nvcc``,
+    thirteen kernels launched once and matched; False with no card, no ``nvcc``,
     a failed build, a hang or a mismatch. Never raises."""
     import torch
 

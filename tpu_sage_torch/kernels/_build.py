@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "tpu_sage_torch",
 )
-SOURCES = ("select", "gather", "gather_mean", "mean_project", "neighbor_max")
+SOURCES = ("select", "gather", "gather_mean", "mean_project", "neighbor_max", "neighbor_mean")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,5 +1,5 @@
 """The body of ``kernels.probe``: load every kernel library (building any
-that is missing) from the build directory given, launch each of the twelve
+that is missing) from the build directory given, launch each of the thirteen
 kernels once at a tiny shape on the card, and hold it against its plain
 version on the same inputs (the wrapper on CPU tensors). Exits 0 only if
 every kernel launched once and matched; run in a subprocess by
@@ -21,7 +21,7 @@ MEAN_PROJECT_TOL = (2.0 ** -7, 1e-4)  # rtol (one bf16 ulp), atol as a share of 
 def cases(g: torch.Generator) -> dict:
     """``{kernel: (wrapper, CPU arguments)}``, one tiny case per kernel."""
     from tpu_sage_torch.kernels import (gather, gather_blockspec, gather_mean, mean_project,
-                                        neighbor_max, sample_hop, select)
+                                        neighbor_max, neighbor_mean, sample_hop, select)
     from tpu_sage_torch.sample.csr import csr_from_padded
 
     n, width, d, fanout, b, o = 64, 16, 40, 5, 8, 24
@@ -39,6 +39,9 @@ def cases(g: torch.Generator) -> dict:
     w = (torch.randn((d, o), generator=g) / d ** 0.5).to(torch.bfloat16)
     neigh = torch.randn((b, width, d), generator=g)
     nm_deg = torch.tensor([0, 1, width - 1, width, 3, 7, 0, width], dtype=torch.int32)
+    # multiples of 1/4, zero past each degree: every order of the sum is exact,
+    # so the kernel's sum equals torch's bitwise
+    quarters = (neigh * 4).round() / 4 * (torch.arange(width) < nm_deg[:, None])[..., None]
     return {
         "select_columns": (select.select_columns,
                            (adj[ids.long()], torch.randint(0, width, (b, fanout), generator=g,
@@ -59,11 +62,12 @@ def cases(g: torch.Generator) -> dict:
                                                                               [u0, u1])),
                      (indptr, indices, deg, ids, u, torch.rand((b * fanout, 3), generator=g))),
         "neighbor_max": (neighbor_max.neighbor_max, (neigh, nm_deg, neigh[:, 0] + 1.0)),
+        "neighbor_mean": (neighbor_mean.neighbor_mean, (quarters, nm_deg, neigh[:, 0] + 1.0)),
     }
 
 
 def run() -> dict:
-    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for the twelve kernels."""
+    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for the thirteen kernels."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.kernels import _build
 

@@ -6,14 +6,18 @@ Each layer runs over all nodes at once. A node's summary covers all its true
 neighbors; degree-0 nodes self-loop, as on the sampled path. The node axis
 goes in chunks of ``chunk`` nodes, and each chunk's ``(chunk, max_degree)``
 neighbor rows come from one ``ops.row_gather``: on the card, one
-``gather_rows`` launch per chunk per layer, and for max pool one
-``neighbor_max`` launch for the chunk's summary.
+``gather_rows`` launch per chunk per layer, and one launch for the chunk's
+summary: ``neighbor_max`` for max pool, ``neighbor_mean`` for mean, gcn and
+mean_pool.
 
 Where the port differs in form from the JAX package, the values agree:
 
 - Columns past a node's degree gather as zero rows (id -1 in the ``masked``
   form). JAX gathers the padding ids and zeroes them with a ``where``, so the
-  sums (mean, gcn, mean_pool) are the same. Attention still masks those
+  sums (mean, gcn, mean_pool) are the same: on the CPU bitwise, on the card
+  to the order of an f32 sum (``kernels/neighbor_mean.py`` adds the columns
+  before each node's degree in its own order, in one launch per chunk that
+  never reads the padding). Attention still masks those
   columns' scores with ``finfo.min``, as JAX does; max pool takes its max
   over the columns before each node's degree (``kernels/neighbor_max.py``:
   on the card one launch per chunk, which never reads the padding), with
@@ -68,6 +72,7 @@ from tpu_sage_torch import tracing
 from tpu_sage_torch.data.quantize import QuantizedFeats
 from tpu_sage_torch.graph.graph_data import DeviceGraph
 from tpu_sage_torch.kernels.neighbor_max import neighbor_max
+from tpu_sage_torch.kernels.neighbor_mean import neighbor_mean
 from tpu_sage_torch.nn.aggregators import GCNAggregator
 from tpu_sage_torch.nn.model import GSSupervised, _l2_normalize
 from tpu_sage_torch.ops import row_gather
@@ -139,21 +144,19 @@ def _chunk_summary(model: GSSupervised, agg, neigh: torch.Tensor, d_chunk: torch
     agg_name = model.aggregator_class
     if agg_name not in EXACT_AGGREGATORS:
         raise ValueError(f"full-graph inference unsupported for {agg_name}")
-    mask = torch.arange(neigh.shape[1], device=neigh.device) < d_chunk[:, None]
-    isolated = d_chunk[:, None] == 0
-    dtype = h_self.dtype
-    denom = d_chunk.clamp_min(1)[:, None].to(dtype)
-    if agg_name in ("mean", "gcn"):
-        summary = neigh.sum(dim=1, dtype=torch.float32).to(dtype) / denom
-        summary = torch.where(isolated, h_self, summary)
+    if agg_name == "max_pool":
+        return neighbor_max(neigh, d_chunk, src_self)
+    if agg_name in ("mean", "gcn", "mean_pool"):
+        # the degree divides in h_self's dtype; src_self is h_self but for mean_pool
+        summary = neighbor_mean(neigh, d_chunk, src_self, h_self.dtype)
         if agg_name == "gcn":
             # mean(self ∪ neighbors); isolated nodes keep their own row
+            isolated = d_chunk[:, None] == 0
+            denom = d_chunk.clamp_min(1)[:, None].to(h_self.dtype)
             summary = torch.where(isolated, h_self, (summary * denom + h_self) / (denom + 1.0))
-    elif agg_name == "max_pool":
-        summary = neighbor_max(neigh, d_chunk, src_self)
-    elif agg_name == "mean_pool":
-        summary = torch.where(isolated, src_self, neigh.sum(dim=1) / denom)
     else:  # attention over every true neighbor; padding columns score finfo.min
+        isolated = d_chunk[:, None] == 0
+        mask = torch.arange(neigh.shape[1], device=neigh.device) < d_chunk[:, None]
         q = _dense(h_self, agg.att_q.kernel)                       # (chunk, K)
         qk = q @ agg.att_k.kernel.T                                 # (chunk, d)
         x = neigh.to(torch.promote_types(neigh.dtype, qk.dtype))
