@@ -8,7 +8,7 @@ Run from the root of the checkout with no arguments::
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. device: a CUDA card must be present; prints its name and power limit;
-2. build: compiles the CUDA sources of the thirteen kernels from
+2. build: compiles the CUDA sources of the kernels of ``kernels.KERNELS`` from
    ``tpu_sage_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a`` (one process
    per source, in parallel);
 3. kernels: holds every kernel against its plain PyTorch version at the
@@ -285,44 +285,19 @@ PEAKS = {
     "sxm": (3.35e12, 989e12, 67e12),
     "pcie": (2.0e12, 756e12, 51e12),
 }
-SOURCES = {
-    "select_columns": ("tpu_sage_torch/kernels/csrc/select.cu",
-                       "tpu_sage/kernels/select.py:29"),
-    "sample_hop": ("tpu_sage_torch/kernels/csrc/select.cu",
-                   "tpu_sage/kernels/select.py:29 with the hop gathers of "
-                   "tpu_sage/sample/sampler.py:55-60"),
-    "gather_rows": ("tpu_sage_torch/kernels/csrc/gather.cu",
-                    "tpu_sage/kernels/gather.py:64"),
-    "gather_rows_blockspec": ("tpu_sage_torch/kernels/csrc/gather.cu",
-                              "tpu_sage/kernels/gather.py:135"),
-    "gather_fanout_mean": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
-                           "tpu_sage/kernels/gather_mean.py:93"),
-    "mean_project": ("tpu_sage_torch/kernels/csrc/mean_project.cu",
-                     "tpu_sage/kernels/mean_project.py:56"),
-    "gather_fanout_mean_int8": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
-                                "tpu_sage/kernels/gather_mean.py:93 on an int8 table "
-                                "(tpu_sage/data/quantize.py:68, XLA in JAX)"),
-    "sample_hop_csr": ("tpu_sage_torch/kernels/csrc/select.cu",
-                       "tpu_sage/kernels/select.py:29 in the CSR hops of "
-                       "tpu_sage/sample/csr.py:67,130"),
-    "gather_fanout_mean_owned": ("tpu_sage_torch/kernels/csrc/gather_mean.cu",
-                                 "tpu_sage/kernels/gather_mean.py:93 with the owner mask of "
-                                 "tpu_sage/dist/halo.py:229-240 (dist_gather_fanout_mean, "
-                                 "XLA in JAX)"),
-    "select_hop": ("tpu_sage_torch/kernels/csrc/select.cu",
-                   "tpu_sage/kernels/select.py:29 with the column arithmetic of "
-                   "tpu_sage/dist/train.py:587-608, tpu_sage/dist/halo.py:135-180 and "
-                   "tpu_sage/sample/sampler.py:111-132"),
-    "csr_tree": ("tpu_sage_torch/kernels/csrc/select.cu",
-                 "tpu_sage/kernels/select.py:29 in every hop of tpu_sage/sample/csr.py:178 "
-                 "(sample_tree_csr) and of the CSR walk of tpu_sage/train/unsupervised.py:54"),
-    "neighbor_max": ("tpu_sage_torch/kernels/csrc/neighbor_max.cu",
-                     "no Pallas kernel: XLA's masked max of tpu_sage/nn/full_graph.py:69-70 "
-                     "(the max pool's exact summary)"),
-    "neighbor_mean": ("tpu_sage_torch/kernels/csrc/neighbor_mean.cu",
-                      "no Pallas kernel: XLA's masked sum and division of "
-                      "tpu_sage/nn/full_graph.py (the mean, gcn and mean_pool exact summary)"),
-}
+
+
+def launches(**counts):
+    """A whole launch table: ``counts`` for the kernels a path launches and
+    0 for every other kernel of ``kernels.KERNELS``, so that a table compared
+    with ``kernels.launch_counts()`` still fails on any launch it does not
+    expect."""
+    from tpu_sage_torch import kernels
+
+    unknown = sorted(set(counts) - set(kernels.KERNELS))
+    if unknown:
+        raise KeyError(f"not kernels of kernels.KERNELS: {unknown}")
+    return {**dict.fromkeys(kernels.KERNELS, 0), **counts}
 
 
 def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=False):
@@ -338,20 +313,15 @@ def per_step_launches(agg, prep, fuse_last, int8=False, csr=False, fuse_first=Fa
     projected table, its two neighbor levels' fanout means there, the four
     levels' raw rows gathered in its backward, and layer 2's one
     ``mean_project``."""
-    hops = {"sample_hop": 0 if csr else 2, "sample_hop_csr": 0, "csr_tree": int(csr),
-            "select_columns": 0, "select_hop": 0, "neighbor_max": 0, "neighbor_mean": 0}
+    hops = {"csr_tree": 1} if csr else {"sample_hop": 2}
     if fuse_first and agg == "mean" and prep == "identity":
-        return {"gather_rows": 6, "gather_rows_blockspec": 0,
-                "gather_fanout_mean": 2, "mean_project": 1, "gather_fanout_mean_int8": 0,
-                "gather_fanout_mean_owned": 0, **hops}
+        return launches(gather_rows=6, gather_fanout_mean=2, mean_project=1, **hops)
     fused = prep == "identity" and fuse_last != "off" and (agg != "lstm" or fuse_last == "all")
     summary_kernel = fused and agg in ("mean", "gcn")
-    mean_project = 0 if agg != "mean" else 2 if fused else 3
-    return {"gather_rows": 2 if summary_kernel else 3, "gather_rows_blockspec": 0,
-            "gather_fanout_mean": int(summary_kernel and not int8),
-            "mean_project": mean_project,
-            "gather_fanout_mean_int8": int(summary_kernel and int8),
-            "gather_fanout_mean_owned": 0, **hops}
+    return launches(gather_rows=2 if summary_kernel else 3,
+                    gather_fanout_mean=int(summary_kernel and not int8),
+                    mean_project=0 if agg != "mean" else 2 if fused else 3,
+                    gather_fanout_mean_int8=int(summary_kernel and int8), **hops)
 
 
 def dist_per_step(mode, world):
@@ -370,12 +340,8 @@ def dist_per_step(mode, world):
            "int8": 1, "hier2d": 1}[mode]
     hops = 8 if mode == "csr" else 2 * per
     deepest_rows = per if mode == "bucketed" else 0
-    return {"select_columns": 0, "select_hop": 2, "sample_hop": 0,
-            "gather_rows": hops + 2 * per + deepest_rows,
-            "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
-            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
-            "gather_fanout_mean_owned": 0 if mode == "bucketed" else per, "neighbor_max": 0,
-            "neighbor_mean": 0}
+    return launches(select_hop=2, gather_rows=hops + 2 * per + deepest_rows, mean_project=2,
+                    gather_fanout_mean_owned=0 if mode == "bucketed" else per)
 
 
 PER_STEP = per_step_launches("mean", "identity", "auto")  # the main path
@@ -999,7 +965,6 @@ def check_packed_sampler(torch, graph, roots):
         us.append(torch.rand((q, f), generator=gen, device="cuda"))
         q *= f
     packed = pack_adjacency(graph.adj, graph.degrees)
-    want = {name: 0 for name in kernels.KERNEL_MODULES}
     trees, counts = [], []
     for fn, args in ((sample_tree, (graph.adj, graph.degrees)), (sample_tree_packed, (packed,))):
         kernels.reset_launch_counts()
@@ -1007,8 +972,7 @@ def check_packed_sampler(torch, graph, roots):
         torch.cuda.synchronize()
         counts.append(kernels.launch_counts())
     hops = len(FANOUTS)
-    if counts != [{**want, "sample_hop": hops},
-                  {**want, "gather_rows": hops, "select_hop": hops}]:
+    if counts != [launches(sample_hop=hops), launches(gather_rows=hops, select_hop=hops)]:
         raise AssertionError(f"sampler launch counts {counts}")
     for level, (a, b) in enumerate(zip(*trees)):
         if not torch.equal(a, b):
@@ -1342,8 +1306,7 @@ def serving_path(torch, np, smi, peaks, tmp):
     export_s = time.perf_counter() - t0
     export_counts = kernels.launch_counts()
     n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
-    if export_counts != {**{k: 0 for k in export_counts}, "gather_rows": 2 * n_chunks,
-                         "neighbor_mean": 2 * n_chunks}:
+    if export_counts != launches(gather_rows=2 * n_chunks, neighbor_mean=2 * n_chunks):
         raise AssertionError(f"export launches {export_counts}, expected gather_rows and "
                              f"neighbor_mean 2 x {n_chunks} each and nothing else")
     arr = np.load(out)
@@ -2257,12 +2220,10 @@ def unsup_per_step(csr=False, corpus=False, int8=False):
     PyTorch); the deepest level's ``gather_fanout_mean`` (its int8 entry
     on an int8 table); 2 ``mean_project``."""
     hops = 2 + (0 if corpus else WALK_LENGTH)
-    return {"select_columns": 0, "select_hop": 0, "sample_hop": 0 if csr else hops,
-            "gather_rows": 2 + int(corpus), "gather_rows_blockspec": 0,
-            "gather_fanout_mean": int(not int8), "mean_project": 2,
-            "gather_fanout_mean_int8": int(int8),
-            "sample_hop_csr": 0, "csr_tree": (1 + int(not corpus)) if csr else 0,
-            "gather_fanout_mean_owned": 0, "neighbor_max": 0, "neighbor_mean": 0}
+    return launches(sample_hop=0 if csr else hops, gather_rows=2 + int(corpus),
+                    gather_fanout_mean=int(not int8), mean_project=2,
+                    gather_fanout_mean_int8=int(int8),
+                    csr_tree=(1 + int(not corpus)) if csr else 0)
 
 
 def unsup_config(**kw):
@@ -3169,11 +3130,9 @@ def nce_dist_per_step(mode, world):
     answers each exchange once, as exact does."""
     per = world if mode in ("ring", "pipelined") else 1
     hops = WALK_LENGTH + len(FANOUTS)
-    return {"select_columns": 0, "select_hop": hops, "sample_hop": 0,
-            "gather_rows": (4 * hops if mode == "csr" else hops * per) + 2 * per,
-            "gather_rows_blockspec": 0, "gather_fanout_mean": 0, "mean_project": 2,
-            "gather_fanout_mean_int8": 0, "sample_hop_csr": 0, "csr_tree": 0,
-            "gather_fanout_mean_owned": per, "neighbor_max": 0, "neighbor_mean": 0}
+    return launches(select_hop=hops,
+                    gather_rows=(4 * hops if mode == "csr" else hops * per) + 2 * per,
+                    mean_project=2, gather_fanout_mean_owned=per)
 
 
 def nce_config(**kw):
@@ -3910,6 +3869,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from tpu_sage_torch import kernels
     from tpu_sage_torch.data.problem import NodeProblem
     from tpu_sage_torch.data.synthetic import bench_store
     from tpu_sage_torch.kernels import _build
@@ -4005,7 +3965,7 @@ def main() -> int:
     phase(None)
 
     kernels_line = []
-    for name_k, (source, replaces) in SOURCES.items():
+    for name_k, kernel in kernels.KERNELS.items():
         rows = [r for r in results if r["kernel"] == name_k]
         # one step's calls: each main-path case once (the foil: the cases
         # gather_rows has on the main path; select_columns and select_hop,
@@ -4022,7 +3982,9 @@ def main() -> int:
                 return None
             return sum(r[key] * r["weight"] for r in rows if r["weight"])
         kernels_line.append({
-            "name": name_k, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name_k, "route": "cuda",
+            "source": f"tpu_sage_torch/kernels/csrc/{kernel.source}.cu",
+            "replaces": kernel.replaces,
             "launches": sum(c[name_k] for c in by_path.values()),
             "launches_by_path": {path: c[name_k] for path, c in by_path.items()},
             "launches_per_step": PER_STEP[name_k],

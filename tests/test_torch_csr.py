@@ -265,7 +265,7 @@ def test_csr_kernel_source_notes_what_it_replaces_and_counts_only_launches():
     kernels.reset_launch_counts()
     sample_hop_csr(_t(indptr), _t(indices), _t(deg), _t([0, 5]), torch.zeros(2, 3))
     assert kernels.launch_counts()["sample_hop_csr"] == 0
-    assert kernels.COUNTERS["sample_hop_csr"] == "CSR_LAUNCHES"
+    assert kernels.KERNELS["sample_hop_csr"][:2] == (kernels.sample_hop, "select")
 
 
 def _jax_hop_uniforms(key, n, fanouts):
@@ -401,5 +401,5 @@ def test_the_tree_kernel_checks_its_arguments_and_counts_only_launches():
     assert torch.equal(levels[0], _t([1, 1, 1, 5, 5, 5]))
     assert csr_tree(*args, _t([0, 5]), []) == []
     assert kernels.launch_counts()["csr_tree"] == 0
-    assert kernels.COUNTERS["csr_tree"] == "TREE_LAUNCHES"
-    assert kernels.KERNEL_MODULES["csr_tree"] is sample_hop and sample_hop.TREE_HOPS == 4
+    assert kernels.KERNELS["csr_tree"][:2] == (sample_hop, "select")
+    assert sample_hop.TREE_HOPS == 4

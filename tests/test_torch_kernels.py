@@ -6,7 +6,10 @@ kernels themselves are held against these plain versions on the card by
 chip_smoke.py.
 """
 
+import ast
+import contextlib
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -509,8 +512,51 @@ def test_plain_versions_do_not_count_as_launches():
     gather_rows_blockspec(torch.zeros(3, 2), torch.zeros(1, dtype=torch.int32))
     gather_fanout_mean(torch.zeros(3, 2), torch.zeros(2, dtype=torch.int32), 2)
     mean_project(torch.zeros(2, 2, 4, dtype=torch.bfloat16), torch.zeros(4, 3, dtype=torch.bfloat16))
-    assert {"gather_rows_blockspec", "sample_hop"} <= set(kernels.KERNEL_MODULES)
-    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNEL_MODULES}
+    assert {"gather_rows_blockspec", "sample_hop"} <= set(kernels.KERNELS)
+    assert kernels.launch_counts() == {name: 0 for name in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("name", sorted(kernels.KERNELS))
+def test_a_launch_counts_under_its_kernel_only_when_it_succeeds(name, monkeypatch):
+    """``_build.launch`` counts every kernel's launches: an entry point that
+    returns 0 counts one launch under the name given and none under any
+    other; one that returns a CUDA error raises and counts nothing."""
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=9))
+
+    def entry(err):
+        def tsg_entry(*args):
+            assert args == (1, 2, 9)  # the arguments, then the stream
+            return err
+        return tsg_entry
+
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="tsg_entry failed: cudaError_t 2"):
+        _build.launch(entry(2), 1, 2, device="cuda", kernel=name)
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+    _build.launch(entry(0), 1, 2, device="cuda", kernel=name)
+    assert kernels.launch_counts() == {k: int(k == name) for k in kernels.KERNELS}
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+
+
+def test_every_launch_names_a_kernel_of_the_table_and_every_source_is_built():
+    """Each ``launch`` call in the kernel modules passes ``kernel=`` a name
+    of ``KERNELS``, every name has a launch, and the table's CUDA sources are
+    the ones ``_build.build()`` compiles."""
+    named = set()
+    for mod in {k.module for k in kernels.KERNELS.values()}:
+        with open(mod.__file__) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "launch":
+                kernel = {k.arg: k.value for k in node.keywords}.get("kernel")
+                assert isinstance(kernel, ast.Constant), f"{mod.__name__}:{node.lineno}"
+                named.add(kernel.value)
+    assert named == set(kernels.KERNELS)
+    assert {k.source for k in kernels.KERNELS.values()} == set(_build.SOURCES)
+    assert len(_build.SOURCES) == 6
 
 
 def test_every_kernel_source_notes_what_it_replaces_and_its_bound():

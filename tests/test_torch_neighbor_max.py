@@ -172,14 +172,14 @@ def test_check_args_refuses_what_the_kernel_does_not_take(bad, error, match):
 
 
 def test_launch_counts_list_the_kernel_and_the_plain_version_launches_nothing():
-    assert kernels.KERNEL_MODULES["neighbor_max"] is nm
+    assert kernels.KERNELS["neighbor_max"][:2] == (nm, "neighbor_max")
     kernels.reset_launch_counts()
     neighbor_max(*ragged(4, 3, 5, torch.float32))
     assert kernels.launch_counts()["neighbor_max"] == 0
-    nm.LAUNCHES = 7
+    _build.counts["neighbor_max"] = 7
     assert kernels.launch_counts()["neighbor_max"] == 7
     kernels.reset_launch_counts()
-    assert nm.LAUNCHES == 0
+    assert _build.counts["neighbor_max"] == 0
 
 
 def test_the_source_notes_what_it_replaces_its_bound_and_its_entry():

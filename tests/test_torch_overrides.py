@@ -178,7 +178,7 @@ def test_the_probe_cases_cover_every_kernel_and_run_their_plain_versions():
     from tpu_sage_torch.kernels import _probe
 
     cases = _probe.cases(torch.Generator().manual_seed(0))
-    assert set(cases) == set(kernels.KERNEL_MODULES)
+    assert set(cases) == set(kernels.KERNELS)
     kernels.reset_launch_counts()
     for name, (fn, args) in cases.items():
         assert torch.isfinite(fn(*args).float()).all(), name

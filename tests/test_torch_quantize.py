@@ -333,4 +333,4 @@ def test_int8_kernel_source_notes_what_it_replaces_and_counts_only_launches():
     gather_fanout_mean_int8(torch.zeros(3, 2, dtype=torch.int8), torch.ones(2),
                             torch.zeros(4, dtype=torch.int32), 2, torch.bfloat16)
     assert kernels.launch_counts()["gather_fanout_mean_int8"] == 0
-    assert kernels.COUNTERS["gather_fanout_mean_int8"] == "INT8_LAUNCHES"
+    assert kernels.KERNELS["gather_fanout_mean_int8"][:2] == (kernels.gather_mean, "gather_mean")

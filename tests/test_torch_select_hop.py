@@ -241,8 +241,7 @@ def test_select_hop_checks_its_arguments_and_counts_only_launches():
     kernels.reset_launch_counts()
     select_hop(rows, rows[:, 0], torch.zeros(4, 2), shift=rows[:, 1], ids=rows[:, 2].clone())
     assert kernels.launch_counts()["select_hop"] == 0
-    assert kernels.COUNTERS["select_hop"] == "HOP_LAUNCHES"
-    assert kernels.KERNEL_MODULES["select_hop"] is kernels.select
+    assert kernels.KERNELS["select_hop"][:2] == (kernels.select, "select")
 
 
 def test_select_source_notes_both_new_entry_points():

@@ -6,10 +6,12 @@ use with ``nvcc`` for ``sm_90a`` into its own shared library under
 the flags, and loaded with ``ctypes``. ``build()`` starts one ``nvcc`` per
 missing library, all at once, and waits for them together. The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside each
-library as ``<library>.log``.
+library as ``<library>.log``. ``launch`` is the one way a wrapper calls an
+entry point, and counts each launch under its kernel's name
+(``kernels.launch_counts``).
 
-Nothing here runs at import: the tests import every module on machines with
-no CUDA toolkit.
+Nothing here builds or loads at import: the tests import every module on
+machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+from collections import Counter
 from typing import Dict, Iterable, Tuple
 
 import torch
@@ -29,7 +32,7 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "tpu_sage_torch",
 )
-SOURCES = ("select", "gather", "gather_mean", "mean_project", "neighbor_max", "neighbor_mean")
+SOURCES = tuple(sorted(f[:-3] for f in os.listdir(_CSRC) if f.endswith(".cu")))
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +40,7 @@ NVCC_FLAGS = (
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+counts: Counter = Counter()  # launches per kernel name since kernels.reset_launch_counts
 
 
 def nvcc_path() -> str:
@@ -114,12 +118,14 @@ def check_launch(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA launch of {what} failed: cudaError_t {err}")
 
 
-def launch(fn, *args, device: torch.device) -> None:
+def launch(fn, *args, device: torch.device, kernel: str) -> None:
     """Call the C entry point ``fn(*args, stream)`` with ``device`` current
-    and its current stream, without synchronizing; raise on a launch error."""
+    and its current stream, without synchronizing; raise on a launch error,
+    else count one launch of ``kernel`` (a name of ``kernels.KERNELS``)."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     check_launch(err, fn.__name__)
+    counts[kernel] += 1
 
 
 def require(t, name: str, *, device, dtypes, ndim: int) -> None:

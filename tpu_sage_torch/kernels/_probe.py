@@ -1,7 +1,7 @@
 """The body of ``kernels.probe``: load every kernel library (building any
-that is missing) from the build directory given, launch each of the thirteen
-kernels once at a tiny shape on the card, and hold it against its plain
-version on the same inputs (the wrapper on CPU tensors). Exits 0 only if
+that is missing) from the build directory given, launch each kernel of
+``kernels.KERNELS`` once at a tiny shape on the card, and hold it against its
+plain version on the same inputs (the wrapper on CPU tensors). Exits 0 only if
 every kernel launched once and matched; run in a subprocess by
 ``probe()``::
 
@@ -67,7 +67,7 @@ def cases(g: torch.Generator) -> dict:
 
 
 def run() -> dict:
-    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for the thirteen kernels."""
+    """``{kernel: {"launches", "max_abs_err", "ok"}}`` for every kernel."""
     from tpu_sage_torch import kernels
     from tpu_sage_torch.kernels import _build
 
@@ -75,9 +75,9 @@ def run() -> dict:
         raise RuntimeError("no CUDA card: torch.cuda.is_available() is false")
     _build.build()
     todo = cases(torch.Generator().manual_seed(0))
-    if set(todo) != set(kernels.KERNEL_MODULES):
+    if set(todo) != set(kernels.KERNELS):
         raise RuntimeError(f"probe cases {sorted(todo)} are not the kernels "
-                           f"{sorted(kernels.KERNEL_MODULES)}")
+                           f"{sorted(kernels.KERNELS)}")
     out = {}
     for name, (fn, args) in todo.items():
         want = fn(*args)

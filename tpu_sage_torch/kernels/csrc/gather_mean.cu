@@ -226,7 +226,7 @@ extern "C" int tsg_gather_fanout_mean(const void* table, const void* ids, void* 
 // shift, sign extension and add at a time: its loads alone took as long as
 // the whole summean kernel, and the work per byte cost time only in the
 // dequantize modes (I2F, and F2F for bf16, at a quarter of the integer
-// rate) (bench/int8_stages.py; PERF.md). The redesign
+// rate) (PERF.md). The redesign
 // (kernels/gather_mean.py::int8_plan states its choices):
 //   - loads: a group of LPR lanes a root (32 for a 602-byte row; 8 or 16 for
 //     rows of at most 160 or 320 bytes, several roots a warp); the group's

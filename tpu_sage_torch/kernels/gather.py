@@ -20,7 +20,6 @@ import torch
 
 from tpu_sage_torch.kernels._build import launch, library, require
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -102,7 +101,6 @@ def gather_rows_into(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
     """``gather_rows`` on the card into a given contiguous ``out (q, w)``,
     whose base, like the table's, may lie anywhere past a 16-byte boundary;
     returns ``out``."""
-    global LAUNCHES
     if oob not in _OOB:
         raise ValueError(f"oob must be one of {sorted(_OOB)}, got {oob!r}")
     if table.device.type != "cuda":
@@ -123,6 +121,5 @@ def gather_rows_into(table: torch.Tensor, ids: torch.Tensor, out: torch.Tensor,
     lib = library("gather", _SIGNATURES)
     launch(lib.tsg_gather_rows, table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, q,
            row_bytes, plan["word"], plan["lanes_per_row"], plan["words_per_lane"], _OOB[oob],
-           device=table.device)
-    LAUNCHES += 1
+           device=table.device, kernel="gather_rows")
     return out

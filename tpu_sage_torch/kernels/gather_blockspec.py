@@ -19,7 +19,6 @@ import torch
 from tpu_sage_torch.kernels._build import launch, library, require
 from tpu_sage_torch.kernels.gather import _SIGNATURES, _word_bytes, gather_rows_reference
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 
 def gather_rows_blockspec_reference(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -29,7 +28,6 @@ def gather_rows_blockspec_reference(table: torch.Tensor, ids: torch.Tensor) -> t
 
 def gather_rows_blockspec(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table (n, w)`` of any dtype, ``ids (q,)`` int32 → ``(q, w)``."""
-    global LAUNCHES
     if table.device.type == "cpu":
         return gather_rows_blockspec_reference(table, ids)
     if table.device.type != "cuda":
@@ -47,6 +45,5 @@ def gather_rows_blockspec(table: torch.Tensor, ids: torch.Tensor) -> torch.Tenso
     word = _word_bytes(row_bytes, table.data_ptr(), out.data_ptr())
     lib = library("gather", _SIGNATURES)
     launch(lib.tsg_gather_rows_blockspec, table.data_ptr(), ids.data_ptr(), out.data_ptr(), n,
-           q, row_bytes, word, device=table.device)
-    LAUNCHES += 1
+           q, row_bytes, word, device=table.device, kernel="gather_rows_blockspec")
     return out

@@ -10,16 +10,16 @@ take the ``plain`` form (``gather.plain_ids``).
 ``gather_fanout_mean_int8`` is the same pass over an int8 table with
 per-column scales (``tpu_sage/data/quantize.py::QuantizedFeats.fanout_mean``,
 XLA in the JAX package): the second entry point of ``csrc/gather_mean.cu``,
-with its own counter ``INT8_LAUNCHES``, its plain version
-``gather_fanout_mean_int8_reference`` and its launch plan ``int8_plan``.
+with its plain version ``gather_fanout_mean_int8_reference`` and its launch
+plan ``int8_plan``.
 
 ``gather_fanout_mean_owned`` is the owner side of the partitioned path's
 pre-reduced exchange (``tpu_sage/dist/halo.py::dist_gather_fanout_mean``,
 XLA in the JAX package): the same pass over this rank's rows ``[lo, lo +
 m)`` of a bf16, f32 or int8 table, rows outside the range counting as zero
 rows and the divisor staying ``F``. The third entry point of
-``csrc/gather_mean.cu``, with its counter ``OWNED_LAUNCHES`` and its plain
-version ``gather_fanout_mean_owned_reference``. Its kernel keeps the
+``csrc/gather_mean.cu``, with its plain version
+``gather_fanout_mean_owned_reference``. Its kernel keeps the
 loads of owned rows in flight, skipping the ids it does not own.
 """
 
@@ -33,9 +33,6 @@ import torch
 from tpu_sage_torch.kernels._build import launch, library, require
 from tpu_sage_torch.kernels.gather import plain_ids
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
-INT8_LAUNCHES = 0  # the same, of the int8 entry point
-OWNED_LAUNCHES = 0  # the same, of the owner-masked entry point
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -80,7 +77,6 @@ def gather_fanout_mean_reference(table: torch.Tensor, ids: torch.Tensor,
 
 def gather_fanout_mean(table: torch.Tensor, ids: torch.Tensor, fanout: int) -> torch.Tensor:
     """``table (n, d)`` bf16/f32, ``ids (R·fanout,)`` int32 → ``(R, d)`` f32."""
-    global LAUNCHES
     if fanout < 1 or ids.shape[0] % fanout:
         raise ValueError(f"ids length {ids.shape[0]} is not a multiple of fanout {fanout}")
     if table.device.type == "cpu":
@@ -99,8 +95,7 @@ def gather_fanout_mean(table: torch.Tensor, ids: torch.Tensor, fanout: int) -> t
     lib = library("gather_mean", _SIGNATURES)
     launch(lib.tsg_gather_fanout_mean, table.data_ptr(), ids.data_ptr(), out.data_ptr(), n, r,
            d, fanout, int(table.dtype == torch.bfloat16), word_elements(table),
-           device=table.device)
-    LAUNCHES += 1
+           device=table.device, kernel="gather_fanout_mean")
     return out
 
 
@@ -199,7 +194,6 @@ def gather_fanout_mean_int8(q: torch.Tensor, scale: torch.Tensor, ids: torch.Ten
     dequantization per mean); otherwise each row dequantized to
     ``out_dtype``, summed in f32 and multiplied by ``1/F`` (the reference's
     ``int8_summean=False``; the plain version says how)."""
-    global INT8_LAUNCHES
     if fanout < 1 or ids.shape[0] % fanout:
         raise ValueError(f"ids length {ids.shape[0]} is not a multiple of fanout {fanout}")
     if out_dtype not in (torch.bfloat16, torch.float32):
@@ -224,8 +218,8 @@ def gather_fanout_mean_int8(q: torch.Tensor, scale: torch.Tensor, ids: torch.Ten
     lib = library("gather_mean", _SIGNATURES)
     launch(lib.tsg_gather_fanout_mean_int8, q.data_ptr(), ids.data_ptr(), scale.data_ptr(),
            out.data_ptr(), n, r, d, fanout, int(out_dtype == torch.bfloat16), int(summean),
-           int(plan["realign"]), plan["lanes_per_row"], plan["chunk"], device=q.device)
-    INT8_LAUNCHES += 1
+           int(plan["realign"]), plan["lanes_per_row"], plan["chunk"], device=q.device,
+           kernel="gather_fanout_mean_int8")
     return out
 
 
@@ -254,7 +248,6 @@ def gather_fanout_mean_owned(table: torch.Tensor, ids: torch.Tensor, fanout: int
     """``table (m, d)`` bf16/f32/int8, this rank's rows ``[lo, lo + m)`` of
     the global table; ``ids (R·fanout,)`` int32 global ids → ``(R, d)`` f32
     partial means over the owned rows (an int8 table's of its raw values)."""
-    global OWNED_LAUNCHES
     if fanout < 1 or ids.shape[0] % fanout:
         raise ValueError(f"ids length {ids.shape[0]} is not a multiple of fanout {fanout}")
     if table.device.type == "cpu":
@@ -271,6 +264,6 @@ def gather_fanout_mean_owned(table: torch.Tensor, ids: torch.Tensor, fanout: int
     vec = int8_word_bytes(table) if table.dtype == torch.int8 else word_elements(table)
     lib = library("gather_mean", _SIGNATURES)
     launch(lib.tsg_gather_fanout_mean_owned, table.data_ptr(), ids.data_ptr(), out.data_ptr(),
-           int(lo), m, r, d, fanout, _OWNED_KINDS[table.dtype], vec, device=table.device)
-    OWNED_LAUNCHES += 1
+           int(lo), m, r, d, fanout, _OWNED_KINDS[table.dtype], vec, device=table.device,
+           kernel="gather_fanout_mean_owned")
     return out

@@ -39,7 +39,6 @@ import torch
 from tpu_sage_torch.kernels._build import launch, library, require
 from tpu_sage_torch.kernels.gather_mean import fanout_sum_mean
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -230,7 +229,6 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"mean_project runs on cuda or cpu, got {x.device}")
     require(w, "w", device=x.device, dtypes=(torch.bfloat16, torch.float32), ndim=2)
@@ -252,8 +250,8 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             w = torch.nn.functional.pad(w, (0, plan["o_pad"] - o))
         launch(lib.tsg_mean_project_f32, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o,
                plan["o_pad"], plan["v"], plan["fb"], plan["tb"], plan["grid"], plan["ms"],
-               plan["kw"], plan["nwb"], plan["ni"], plan["smem"], device=x.device)
-        LAUNCHES += 1
+               plan["kw"], plan["nwb"], plan["ni"], plan["smem"], device=x.device,
+               kernel="mean_project")
         return out
     if b == 0 or o == 0:
         return torch.empty((b, o), dtype=w.dtype, device=x.device)
@@ -265,8 +263,7 @@ def _forward_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, o_pad), dtype=w.dtype, device=x.device)
     launch(lib.tsg_mean_project_bf16, x.data_ptr(), w.data_ptr(), out.data_ptr(), b, f, d, o_pad,
            x.element_size(), plan["word"], plan["g_rows"], plan["n_wbufs"], plan["tb"],
-           plan["grid"], plan["ksplit"], plan["smem"], device=x.device)
-    LAUNCHES += 1
+           plan["grid"], plan["ksplit"], plan["smem"], device=x.device, kernel="mean_project")
     return out if o_pad == o else out[:, :o].contiguous()
 
 

@@ -17,7 +17,6 @@ import torch
 
 from tpu_sage_torch.kernels._build import launch, library
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -81,7 +80,6 @@ def neighbor_max(neigh: torch.Tensor, degrees: torch.Tensor,
     """``neigh (rows, max_degree, w)`` f32 or bf16 (rows contiguous, node and
     neighbour strides free), ``degrees (rows,)`` int32, ``self_rows (rows,
     w)`` → ``(rows, w)`` in ``neigh``'s dtype."""
-    global LAUNCHES
     if neigh.device.type == "cpu":
         return neighbor_max_reference(neigh, degrees, self_rows)
     if neigh.device.type != "cuda":
@@ -99,6 +97,5 @@ def neighbor_max(neigh: torch.Tensor, degrees: torch.Tensor,
     lib = library("neighbor_max", _SIGNATURES)
     launch(lib.tsg_neighbor_max, neigh.data_ptr(), degrees.data_ptr(), self_rows.data_ptr(),
            out.data_ptr(), rows, max_degree, w * eb // word, *(s // word for s in strides), eb,
-           word, plan["lanes"], device=neigh.device)
-    LAUNCHES += 1
+           word, plan["lanes"], device=neigh.device, kernel="neighbor_max")
     return out

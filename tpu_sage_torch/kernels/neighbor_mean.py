@@ -25,7 +25,6 @@ import torch
 
 from tpu_sage_torch.kernels._build import launch, library
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -138,7 +137,6 @@ def neighbor_mean(neigh: torch.Tensor, degrees: torch.Tensor, self_rows: torch.T
     (rows contiguous, node and neighbour strides free), ``degrees (rows,)``
     int32, ``self_rows (rows, w)``, ``degree_dtype`` the dtype the degree
     divides in (default ``neigh``'s) → ``(rows, w)`` in ``neigh``'s dtype."""
-    global LAUNCHES
     if neigh.device.type == "cpu":
         return neighbor_mean_reference(neigh, degrees, self_rows, degree_dtype)
     if neigh.device.type != "cuda":
@@ -156,6 +154,6 @@ def neighbor_mean(neigh: torch.Tensor, degrees: torch.Tensor, self_rows: torch.T
     launch(lib.tsg_neighbor_mean, neigh.data_ptr(), degrees.data_ptr(), self_rows.data_ptr(),
            out.data_ptr(), rows, max_degree, w * eb // word,
            *(s // word for s in plan["strides"]), eb, word, plan["lanes"], plan["groups"],
-           plan["k"], int(degree_dtype == torch.bfloat16), device=neigh.device)
-    LAUNCHES += 1
+           plan["k"], int(degree_dtype == torch.bfloat16), device=neigh.device,
+           kernel="neighbor_mean")
     return out

@@ -12,13 +12,13 @@ composition the hop was before: a ``plain`` gather of the degrees,
 ``sample_hop_csr`` is the same hop against CSR adjacency
 (``tpu_sage/sample/csr.py``): ``out[b, k] = indices[indptr[id] + col]``,
 ``id`` itself where the degree is 0. It is the entry point
-``tsg_sample_hop_csr`` of ``csrc/select.cu``, with its own counter
-``CSR_LAUNCHES`` and its plain version ``sample_hop_csr_reference``; single
-CSR hops launch it (``uniform_neighbor_sample_csr``, ``CSRNeighborSampler``).
+``tsg_sample_hop_csr`` of ``csrc/select.cu``, with its plain version
+``sample_hop_csr_reference``; single CSR hops launch it
+(``uniform_neighbor_sample_csr``, ``CSRNeighborSampler``).
 
 ``csr_tree`` runs every hop of a CSR tree (up to 4 a launch) in one launch
-of ``tsg_sample_tree_csr``, counter ``TREE_LAUNCHES``: one thread per leaf
-walks its ancestry with ``sample_hop_csr``'s arithmetic, so the tree is
+of ``tsg_sample_tree_csr``, each counted as a ``csr_tree`` launch: one
+thread per leaf walks its ancestry with ``sample_hop_csr``'s arithmetic, so the tree is
 bitwise the hop-by-hop tree for the same uniforms. Every CSR tree
 (``sample/csr.py::sample_tree_csr``, element and window hops) and CSR walk
 (``train/unsupervised.py::graph_random_walk``, fanout 1 a hop, the last level
@@ -38,9 +38,6 @@ from tpu_sage_torch.kernels._build import launch, library, require
 from tpu_sage_torch.kernels.gather import gather_rows_reference, plain_ids
 from tpu_sage_torch.kernels.select import _SIGNATURES, hop_columns, select_columns_reference
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
-CSR_LAUNCHES = 0  # the same, of the CSR hop
-TREE_LAUNCHES = 0  # the same, of the CSR tree
 TREE_HOPS = 4  # hops a csr_tree launch takes; a deeper tree launches again
 MAX_LEAVES = 2**31 - 1  # the kernel's 32-bit leaf index
 
@@ -61,7 +58,6 @@ def sample_hop(adj: torch.Tensor, degrees: torch.Tensor, ids: torch.Tensor,
     Degree 0 picks column 0 (the self pad); an id outside ``[0, n)`` reads
     as the ``plain`` gather does (a negative id wraps once by ``n``, then
     clamps)."""
-    global LAUNCHES
     if adj.shape[0] != degrees.shape[0]:
         raise ValueError(f"adj has {adj.shape[0]} rows, degrees {degrees.shape[0]}")
     if u.dim() != 2 or u.shape[0] != ids.shape[0]:
@@ -83,8 +79,7 @@ def sample_hop(adj: torch.Tensor, degrees: torch.Tensor, ids: torch.Tensor,
         raise ValueError("cannot sample from an empty graph")
     lib = library("select", _SIGNATURES)
     launch(lib.tsg_sample_hop, adj.data_ptr(), degrees.data_ptr(), ids.data_ptr(), u.data_ptr(),
-           out.data_ptr(), n, d, b, k, device=adj.device)
-    LAUNCHES += 1
+           out.data_ptr(), n, d, b, k, device=adj.device, kernel="sample_hop")
     return out
 
 
@@ -109,7 +104,6 @@ def sample_hop_csr(indptr: torch.Tensor, indices: torch.Tensor, degrees: torch.T
     Degree 0 gives the id itself, and reads nothing of ``indices``; an id
     outside ``[0, n)`` reads its degree and row start as the ``plain`` gather
     does."""
-    global CSR_LAUNCHES
     n = degrees.shape[0]
     if indptr.shape[0] != n + 1:
         raise ValueError(f"indptr has {indptr.shape[0]} entries, expected {n + 1}")
@@ -132,8 +126,7 @@ def sample_hop_csr(indptr: torch.Tensor, indices: torch.Tensor, degrees: torch.T
     lib = library("select", _SIGNATURES)
     launch(lib.tsg_sample_hop_csr, indptr.data_ptr(), indices.data_ptr(), degrees.data_ptr(),
            ids.data_ptr(), u.data_ptr(), out.data_ptr(), n, indices.shape[0], b, k,
-           device=degrees.device)
-    CSR_LAUNCHES += 1
+           device=degrees.device, kernel="sample_hop_csr")
     return out
 
 
@@ -157,7 +150,6 @@ def csr_tree(indptr: torch.Tensor, indices: torch.Tensor, degrees: torch.Tensor,
     ``(N_{l+1},)`` int32, as ``sample_hop_csr`` hop by hop would return them
     (the CSR arrays as there). ``last_only`` returns, and writes, only the
     deepest level (a walk). Refuses more than 2^31 - 1 leaves."""
-    global TREE_LAUNCHES
     n = degrees.shape[0]
     if indptr.shape[0] != n + 1:
         raise ValueError(f"indptr has {indptr.shape[0]} entries, expected {n + 1}")
@@ -200,6 +192,6 @@ def csr_tree(indptr: torch.Tensor, indices: torch.Tensor, degrees: torch.Tensor,
             roots = ids if h0 == 0 else levels[h0 - 1]
             launch(lib.tsg_sample_tree_csr, indptr.data_ptr(), indices.data_ptr(),
                    degrees.data_ptr(), roots.data_ptr(), u_ptrs, out_ptrs, fanouts, len(part),
-                   n, indices.shape[0], sizes[part[-1] + 1], device=degrees.device)
-            TREE_LAUNCHES += 1
+                   n, indices.shape[0], sizes[part[-1] + 1], device=degrees.device,
+                   kernel="csr_tree")
     return levels[-1:] if last_only else levels

@@ -8,12 +8,11 @@ tensor each wrapper launches its entry point of ``csrc/select.cu``; on a CPU
 tensor it runs its plain version. Exact: a column outside ``[0, D)`` gives 0,
 as the one-hot sum does.
 
-- ``select_columns`` (``tsg_select_columns``, counter ``LAUNCHES``): fixed
-  columns (``dist/halo.py::CSRAdjRows.rows``) and the reference's window-pair
+- ``select_columns`` (``tsg_select_columns``): fixed columns
+  (``dist/halo.py::CSRAdjRows.rows``) and the reference's window-pair
   composition (``sample/csr.py::window_pair_hop``).
-- ``select_hop`` (``tsg_select_hop``, counter ``HOP_LAUNCHES``): the column
-  arithmetic, the pick and the degree-0 self-loop in one launch, for the
-  partitioned hop (``dist/train.py::sample_level_distributed``, dense rows
+- ``select_hop`` (``tsg_select_hop``): the column arithmetic, the pick and
+  the degree-0 self-loop in one launch, for the partitioned hop (``dist/train.py::sample_level_distributed``, dense rows
   and the CSR pair view), the CSR pick at the owner
   (``dist/halo.py::dist_sample_csr_owner_select``) and the packed sampler
   (``sample/sampler.py::sample_tree_packed``). Its plain version
@@ -32,8 +31,6 @@ import torch
 
 from tpu_sage_torch.kernels._build import launch, library, require
 
-LAUNCHES = 0  # kernel launches since the last reset (kernels.reset_launch_counts)
-HOP_LAUNCHES = 0  # the same, of select_hop
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -66,7 +63,6 @@ def select_columns(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 
     ``rows`` may be a view whose rows are spaced wider than ``D`` (a column
     slice of a wider table); its elements within a row must be adjacent."""
-    global LAUNCHES
     if rows.device.type == "cpu":
         return select_columns_reference(rows, cols)
     if rows.device.type != "cuda":
@@ -86,8 +82,7 @@ def select_columns(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
         return out
     lib = library("select", _SIGNATURES)
     launch(lib.tsg_select_columns, rows.data_ptr(), cols.data_ptr(), out.data_ptr(), b, d,
-           rows.stride(0), k, device=rows.device)
-    LAUNCHES += 1
+           rows.stride(0), k, device=rows.device, kernel="select_columns")
     return out
 
 
@@ -116,7 +111,6 @@ def select_hop(rows: torch.Tensor, deg: torch.Tensor, u: torch.Tensor,
     view's offset), ``ids (B,)`` int32 the frontier, which a degree-0 row
     returns (without ``ids`` it picks column 0, the self pad) → ``(B, K)``
     int32."""
-    global HOP_LAUNCHES
     b = rows.shape[0]
     if rows.dim() != 2 or u.dim() != 2 or u.shape[0] != b:
         raise ValueError(f"rows must be (B, D) and u (B, K), got {tuple(rows.shape)} and "
@@ -149,6 +143,5 @@ def select_hop(rows: torch.Tensor, deg: torch.Tensor, u: torch.Tensor,
     launch(lib.tsg_select_hop, rows.data_ptr(), deg.data_ptr(),
            0 if shift is None else shift.data_ptr(), 0 if ids is None else ids.data_ptr(),
            u.data_ptr(), out.data_ptr(), b, d, rows.stride(0), deg.stride(0),
-           0 if shift is None else shift.stride(0), k, device=rows.device)
-    HOP_LAUNCHES += 1
+           0 if shift is None else shift.stride(0), k, device=rows.device, kernel="select_hop")
     return out
