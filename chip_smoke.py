@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    kernel, plain version and one PyTorch library call with CUDA events,
    L2-cold (``tpu_sage_torch.bench.timing``), and ``gather_rows`` at exact
    inference's three shapes (one 4,096-node chunk's 524,288 neighbor ids
-   from f32 602-wide, f32 256-wide and bf16 602-wide tables), and both
+   from f32 602-wide, f32 256-wide and bf16 602-wide tables) in id order
+   (``gather_order``, then the gather) and in output order, and
+   ``gather_order`` alone, and both
    redesigned kernels where they once lost to their library call
    (``mean_project`` at 6,144 roots, on the preps' f32 rows at 512 and
    12,800 roots, at O = 64 and with an f32 W at the main path's layers and
@@ -64,9 +66,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``tpu_sage_torch.export.main`` writes f16 logits from the best file
    (232,965 × 41, finite, scoring the val fold as the best file's metric);
    each with the launch counters from 0: training launches every main-path
-   kernel (and the exact validation ``neighbor_mean``), the export
-   ``gather_rows`` and ``neighbor_mean`` 2 × 57 times each and nothing
-   else; prints
+   kernel (and the exact validation's ``neighbor_mean`` and
+   ``gather_order``), the export ``gather_rows``, ``gather_order`` and
+   ``neighbor_mean`` 2 × 57 times each and nothing else; prints
    the ms per exact pass on the f32 and bf16 tables, nodes/s, the gathers'
    bound and a profile of one pass, after the card's name and power limit;
 7. the other aggregators and preps: ``gather_rows`` and ``sample_hop``
@@ -487,7 +489,10 @@ def phase_kernels(torch, np, graph, levels, peaks):
     # gather: exact inference's shapes (off the training step, weight 0): one
     # chunk's neighbor ids, q = 4,096 x 128, from an f32 (n, 602) table
     # (export, layer 0), an f32 (n, 256) one (layer 1) and a bf16 (n, 602)
-    # one (fit's exact validation, layer 0)
+    # one (fit's exact validation, layer 0), in id order and in output
+    # order; then the ordering alone (its bound: the ids read, order and
+    # the ids in order written; its library yardstick one stable argsort of
+    # the precomputed buckets)
     cols = torch.arange(max_degree, dtype=torch.int32, device="cuda")
     chunk_ids = torch.where(cols < deg[:EXACT_CHUNK, None], adj[:EXACT_CHUNK], -1).reshape(-1)
     q, nd = chunk_ids.shape[0], distinct(chunk_ids)
@@ -495,12 +500,14 @@ def phase_kernels(torch, np, graph, levels, peaks):
     hidden = torch.randn((n, 2 * DIMS[0]), generator=gen, device="cuda")
     for name, tab in (("exact layer 0 f32", feats32), ("exact layer 1 f32", hidden),
                       ("exact layer 0 bf16", feats)):
-        row = tab.shape[1] * tab.element_size()
-        add("gather_rows", f"{name} {tuple(tab.shape)} q={q}",
-            lambda t=tab: gather.gather_rows(t, chunk_ids, "zero"),
-            lambda t=tab: gather.gather_rows_reference(t, chunk_ids, "zero"),
-            lambda t=tab: t[chunk_ids.long()],
-            4 * q + nd * row + q * row, weight=0)
+        cases.extend(exact_gather_cases(torch, name, tab, chunk_ids, nd))
+    shift = gather.gather_order_plan(n, q, feats32.shape[1] * 4, gather.l2_bytes(feats.device))
+    shift = shift["shift"]
+    keys = gather.order_keys(chunk_ids, n, shift)
+    add("gather_order", f"exact chunk ids ({q},) of a ({n}, ...) table, shift {shift}",
+        lambda: torch.stack(gather.gather_order(chunk_ids, n, shift)),
+        lambda: torch.stack(gather.gather_order_reference(chunk_ids, n, shift)),
+        lambda: torch.argsort(keys, stable=True), 12 * q, weight=0)
 
     # fanout mean: deepest level, 128,000 ids, F = 10 -> (12800, 602) f32
     f = FANOUTS[1]
@@ -597,6 +604,39 @@ def phase_kernels(torch, np, graph, levels, peaks):
     return results
 
 
+def exact_gather_cases(torch, label, table, ids, n_distinct):
+    """Row 2x: one exact chunk's ``gather_rows`` (weight 0: off the training
+    step) as the wrapper runs it (in id order where ``gather_order_plan``
+    says so: the ordering and the gather, timed together) and in output
+    order, both against the plain version, under the same bound: each
+    distinct row read once, every row written once, the ids read once."""
+    from tpu_sage_torch.kernels import gather
+
+    q, width = ids.shape[0], table.shape[1]
+    row = width * table.element_size()
+    plan = gather.gather_order_plan(table.shape[0], q, row, gather.l2_bytes(table.device))
+    name = f"{label} {str(table.dtype)[6:]} {tuple(table.shape)} q={q}"
+    ids64 = ids.long()
+    nbytes = 4 * q + n_distinct * row + q * row
+
+    def plain():
+        return gather.gather_rows_reference(table, ids, "zero")
+
+    def library():
+        return table[ids64]
+
+    def unordered():
+        out = torch.empty((q, width), dtype=table.dtype, device=table.device)
+        return gather.gather_rows_in_order(table, ids, out, "zero", None)
+
+    planned = "in id order" if plan["ordered"] else "output order by the plan"
+    return [kernel_case("gather_rows", f"{name}, {planned}",
+                        lambda: gather.gather_rows(table, ids, "zero"), plain, library, nbytes,
+                        weight=0),
+            kernel_case("gather_rows", f"{name}, output order", unordered, plain, library,
+                        nbytes, weight=0)]
+
+
 def redesign_cases(torch, graph, levels, peaks, gen):
     """Phase 3, the shapes where ``mean_project`` and ``gather_rows`` lost to
     their library call before their redesign (weight 0: off the main path's
@@ -676,8 +716,9 @@ def redesign_cases(torch, graph, levels, peaks, gen):
         dtype=torch.int32), "zero")
     cols = torch.arange(adj.shape[1], dtype=torch.int32, device="cuda")
     chunk_ids = torch.where(cols < deg[:EXACT_CHUNK, None], adj[:EXACT_CHUNK], -1).reshape(-1)
-    add_gather("exact layer 1 f32", torch.randn((n, 2 * DIMS[0]), generator=gen, device="cuda"),
-               chunk_ids, "zero")
+    cases.extend(exact_gather_cases(
+        torch, "exact layer 1 f32", torch.randn((n, 2 * DIMS[0]), generator=gen, device="cuda"),
+        chunk_ids, int(torch.unique(chunk_ids).numel())))
     return cases
 
 
@@ -1289,8 +1330,9 @@ def serving_path(torch, np, smi, peaks, tmp):
     vals = [r["val_metric"] for r in recs if "val_metric" in r]
     if epochs != [[0, 1], [2]] or not vals or not all(0.0 <= v <= 1.0 for v in vals):
         raise AssertionError(f"CLI epochs {epochs}, val metrics {vals}")
-    for name, n in fit_counts.items():  # the exact validation's summaries: neighbor_mean
-        if (n == 0) != (PER_STEP[name] == 0 and name != "neighbor_mean"):
+    # the exact validation's summaries (neighbor_mean) and its gathers' ordering
+    for name, n in fit_counts.items():
+        if (n == 0) != (PER_STEP[name] == 0 and name not in ("neighbor_mean", "gather_order")):
             raise AssertionError(f"CLI training launched {name} {n} times")
     log(f"  CLI: 2 epochs, then resumed at epoch 2 from {recs[resumed[0]]['resumed_from']!r}; "
         f"exact val metrics {[round(v, 4) for v in vals]}; launches {fit_counts}")
@@ -1306,9 +1348,13 @@ def serving_path(torch, np, smi, peaks, tmp):
     export_s = time.perf_counter() - t0
     export_counts = kernels.launch_counts()
     n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
-    if export_counts != launches(gather_rows=2 * n_chunks, neighbor_mean=2 * n_chunks):
-        raise AssertionError(f"export launches {export_counts}, expected gather_rows and "
-                             f"neighbor_mean 2 x {n_chunks} each and nothing else")
+    # every chunk of both layers gathers in id order (gather_order_plan: the
+    # f32 tables exceed L2, each row asked for ~2.5 times a chunk)
+    if export_counts != launches(gather_rows=2 * n_chunks, neighbor_mean=2 * n_chunks,
+                                 gather_order=2 * n_chunks):
+        raise AssertionError(f"export launches {export_counts}, expected gather_rows, "
+                             f"gather_order and neighbor_mean 2 x {n_chunks} each and nothing "
+                             f"else")
     arr = np.load(out)
     if arr.shape != (SERVING_NODES, 41) or arr.dtype != np.float16 or not np.isfinite(arr).all():
         raise AssertionError(f"exported logits {arr.shape} {arr.dtype}, finite "
@@ -1339,6 +1385,7 @@ def serving_path(torch, np, smi, peaks, tmp):
     log(json.dumps({"serving_path": {
         "nodes": problem.n_nodes, "chunk": EXACT_CHUNK, "chunks_per_layer": n_chunks,
         "gather_rows_launches_per_pass": 2 * n_chunks,
+        "gather_order_launches_per_pass": 2 * n_chunks,
         "neighbor_mean_launches_per_pass": 2 * n_chunks, "exact_pass": passes,
         "export_wall_s": export_s, "cli_fit_wall_s_both_runs": fit_s}}))
     return {"cli_fit": fit_counts, "export": export_counts}
@@ -1484,9 +1531,11 @@ def new_shape_cases(torch, graph, levels, stand_ins, peaks):
     cols = torch.arange(graph.adj.shape[1], dtype=torch.int32, device="cuda")
     chunk_ids = torch.where(cols < graph.degrees[:EXACT_CHUNK, None],
                             graph.adj[:EXACT_CHUNK], -1).reshape(-1)
+    nd = int(torch.unique(chunk_ids).numel())
     for case, width in (("exact gcn layer 1", DIMS[1]), ("exact pool mlp rows", AGG_HIDDEN)):
-        add_gather(case, torch.relu(torch.randn((n, width), generator=gen, device="cuda")),
-                   chunk_ids)
+        cases.extend(exact_gather_cases(
+            torch, case, torch.relu(torch.randn((n, width), generator=gen, device="cuda")),
+            chunk_ids, nd))
 
     feat_dim = graph.feats.shape[1]
     prep_w = torch.randn((feat_dim, EMBEDDING_DIM), generator=gen, device="cuda") / feat_dim ** 0.5
@@ -2596,8 +2645,8 @@ def unsup_entry_points(torch, np):
     """Phase 9 (f): ``tpu_sage_torch.cli.main --unsupervised`` for one epoch
     on the 232,965-node Reddit-shaped store with a checkpoint (and the
     probe), ``tpu_sage_torch.export.main`` writing its f16 embeddings
-    (232,965 × 256, finite; ``gather_rows`` and ``neighbor_mean`` 2 × 57
-    launches each and nothing else), then ``--fuse-first-layer`` for one epoch; each with the launch
+    (232,965 × 256, finite; ``gather_rows``, ``gather_order`` and
+    ``neighbor_mean`` 2 × 57 launches each and nothing else), then ``--fuse-first-layer`` for one epoch; each with the launch
     counters from 0."""
     import os
     import tempfile
@@ -2633,7 +2682,7 @@ def unsup_entry_points(torch, np):
                     raise AssertionError(f"exported embeddings {arr.shape} {arr.dtype}")
     n_chunks = -(-SERVING_NODES // EXACT_CHUNK)
     if by_path["unsup_export"] != {**{k: 0 for k in by_path["unsup_export"]},
-                                   "gather_rows": 2 * n_chunks,
+                                   "gather_rows": 2 * n_chunks, "gather_order": 2 * n_chunks,
                                    "neighbor_mean": 2 * n_chunks}:
         raise AssertionError(f"export launches {by_path['unsup_export']}")
     for label in ("unsup_cli", "fused_cli"):

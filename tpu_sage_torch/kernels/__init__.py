@@ -1,12 +1,14 @@
 """Hand-written CUDA kernels for Hopper: one per TPU kernel of the JAX package,
-and the exact pass's max and mean summaries, which the JAX package left to XLA.
+the exact pass's max and mean summaries, which the JAX package left to XLA,
+and the ordering of a gather's ids by id, which it does not do.
 
 ``KERNELS`` below is the one list of them: each kernel's name, the port
 module holding its wrapper, its CUDA source in ``csrc/`` and what it replaces
-in the JAX package. A module may hold more than one kernel: ``gather_mean``
-the int8 and owner-masked fanout means beside the plain one, ``sample_hop``
-the CSR hop and the CSR tree, ``select`` the column pick fused with its hop
-arithmetic (``select_hop``).
+in the JAX package. A module may hold more than one kernel: ``gather`` the
+ordering (``gather_order``) beside the gather, ``gather_mean`` the int8 and
+owner-masked fanout means beside the plain one, ``sample_hop`` the CSR hop
+and the CSR tree, ``select`` the column pick fused with its hop arithmetic
+(``select_hop``).
 
 Each module holds its kernels' wrappers and the plain PyTorch version beside
 each (``*_reference``). A wrapper runs the plain version only for tensors on
@@ -75,6 +77,9 @@ KERNELS = {
     "neighbor_mean": Kernel(neighbor_mean, "neighbor_mean", "no Pallas kernel: XLA's masked sum "
                             "and division of the mean, gcn and mean_pool exact summaries in "
                             "nn/full_graph.py"),
+    "gather_order": Kernel(gather, "gather", "no Pallas kernel: kernels/gather.py::gather_rows "
+                           "walks its ids in output order; the port's gather walks them in id "
+                           "order where gather_order_plan says so"),
 }
 
 

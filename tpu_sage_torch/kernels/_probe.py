@@ -63,6 +63,9 @@ def cases(g: torch.Generator) -> dict:
                      (indptr, indices, deg, ids, u, torch.rand((b * fanout, 3), generator=g))),
         "neighbor_max": (neighbor_max.neighbor_max, (neigh, nm_deg, neigh[:, 0] + 1.0)),
         "neighbor_mean": (neighbor_mean.neighbor_mean, (quarters, nm_deg, neigh[:, 0] + 1.0)),
+        # ids past both ends of the table: their own bucket; shift 3: 9 buckets
+        "gather_order": (lambda i: torch.stack(gather.gather_order(i, n, 3)),
+                         (torch.randint(-2, n + 2, (3000,), generator=g, dtype=torch.int32),)),
     }
 
 

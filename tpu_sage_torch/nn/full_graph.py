@@ -6,8 +6,10 @@ Each layer runs over all nodes at once. A node's summary covers all its true
 neighbors; degree-0 nodes self-loop, as on the sampled path. The node axis
 goes in chunks of ``chunk`` nodes, and each chunk's ``(chunk, max_degree)``
 neighbor rows come from one ``ops.row_gather``: on the card, one
-``gather_rows`` launch per chunk per layer, and one launch for the chunk's
-summary: ``neighbor_max`` for max pool, ``neighbor_mean`` for mean, gcn and
+``gather_rows`` launch per chunk per layer (walking the ids in id order,
+after one ``gather_order`` launch, where ``kernels/gather.py::
+gather_order_plan`` says so), and one launch for the chunk's summary:
+``neighbor_max`` for max pool, ``neighbor_mean`` for mean, gcn and
 mean_pool.
 
 Where the port differs in form from the JAX package, the values agree:

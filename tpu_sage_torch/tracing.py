@@ -31,6 +31,11 @@ The spans (``nn/full_graph.py``, ``train/trainer.py``)::
         tsg.exact.gather, tsg.exact.reduce, tsg.exact.combine
     tsg.train.step (edges) > tsg.train.sample, tsg.train.forward,
         tsg.train.backward, tsg.train.optimizer
+
+On the card every ``gather_rows`` adds ``rows`` (its ids) and
+``ordered_rows`` (the same, where it walked them in id order; else 0) to
+the innermost open span (``kernels/gather.py``): in the exact pass,
+``tsg.exact.gather``.
 """
 
 from __future__ import annotations
