@@ -10,7 +10,7 @@ from __future__ import annotations
 import json
 import math
 import statistics
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
@@ -29,6 +29,21 @@ def judge(values: Dict[str, float], limits: Dict[str, float]) -> Dict[str, dict]
         v = values.get(name)
         ok = v is not None and math.isfinite(v) and v <= limit
         out[name] = {"value": v, "limit": limit, "ok": ok}
+    return out
+
+
+def worst(per_rank: List[Dict[str, float]]) -> Dict[str, Optional[float]]:
+    """The numbers of a group's ranks merged for ``judge``: each at its
+    worst over the ranks, which is the largest, since every limit is an
+    upper one; a number that is not finite on a rank over any finite one; a
+    number that a rank did not produce is None."""
+    out = {}
+    for name in sorted(set().union(*per_rank)):
+        got = [r.get(name) for r in per_rank]
+        if any(v is None for v in got):
+            out[name] = None
+        else:
+            out[name] = next((v for v in got if not math.isfinite(v)), max(got))
     return out
 
 

@@ -21,7 +21,6 @@ class Session:
 
     def __init__(self, spec: dict, seed: int, device: torch.device,
                  program: Optional[dict] = None):
-        from tpu_sage_torch.graph.graph_data import DeviceGraph
         from tpu_sage_torch.train.trainer import TrainConfig, build_model
 
         cfg, traffic = spec["config"], spec["traffic"]
@@ -39,12 +38,18 @@ class Session:
         self.w0 = self.ref.init_params(shapes, graphgen.generator(seed, "weights", device),
                                        device)
         graphgen.give_weights(self.model, self.w0)
-        self.graph = DeviceGraph(adj=self.inputs.adj, degrees=self.inputs.degrees,
-                                 feats=self.inputs.feats, targets=self.inputs.labels)
+        self.graph = self._program_graph()
         self.outputs = []  # the window's first and last passes
         for _ in range(WARM_PASSES):
             self._pass()
         self.outputs.clear()
+
+    def _program_graph(self):
+        """The graph the program's pass takes: the whole of the inputs."""
+        from tpu_sage_torch.graph.graph_data import DeviceGraph
+
+        return DeviceGraph(adj=self.inputs.adj, degrees=self.inputs.degrees,
+                           feats=self.inputs.feats, targets=self.inputs.labels)
 
     @property
     def work_per_step(self) -> int:

@@ -18,12 +18,21 @@ warm-up) → the measured window, a closed loop of steps for ``seconds`` that
 ends in a synchronize → with ``trace`` a short profiled stretch → the peak
 memory read → the program's state released → the comparison with the
 reference.
+
+A cell whose ``chips`` is n > 1 runs as n ranks, one process a card, in one
+process group (``ranks.py``), in lockstep: rank 0 times the first two
+warm-up steps and gives every rank the same counts of warm-up, window and
+traced steps; each step ends in collectives with every rank, so rank 0's
+window is the group's. Rank 0 reports one line for the group: the fullest
+card's peak memory, rank 0's trace with every rank's beside it, and each
+compared number at its worst over the ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import gc
+import math
 import os
 import subprocess
 import sys
@@ -32,7 +41,7 @@ from typing import Dict, List, Optional
 
 import torch
 
-from benchmark import checks, counts
+from benchmark import checks, counts, ranks
 from benchmark.files import load_json, load_module
 from benchmark.trace import Trace, profile_steps
 
@@ -41,6 +50,9 @@ ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_sage")
 WARM_SECONDS = 1.0  # warm-up after the first steps, also timing the step for the event pool
 TRACE_SECONDS = 0.25  # how long the profiled stretch should be, in untraced step time
+# a group's time limit: set-up, then ``seconds``, then the trace and the comparison
+GROUP_SETUP_S = 150.0
+GROUP_TAIL_S = 150.0
 IMPORTED_AT = time.perf_counter()
 
 
@@ -55,6 +67,14 @@ def process_age_s() -> float:
         return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
     except (OSError, ValueError, IndexError):
         return time.perf_counter() - IMPORTED_AT
+
+
+class Forbidden(RuntimeError):
+    """A rank of a group loaded JAX or the JAX package."""
+
+    def __init__(self, found: List[str]):
+        super().__init__(f"the group loaded {found}")
+        self.found = found
 
 
 def forbidden_modules(modules=None) -> List[str]:
@@ -119,7 +139,9 @@ class Run:
     least: Dict[str, float]     # counts.py's FLOPs and bytes of one step
     dtype: str                  # the products' dtype, for the FLOPs peak
     peak: Optional[dict]        # peaks.json's row for this card, or None
-    trace: Optional[Trace] = None
+    trace: Optional[Trace] = None     # rank 0's
+    chips: int = 1                    # the cards whose work ``work`` and ``least`` count
+    traces: Optional[List[Trace]] = None  # every rank's, in rank order
 
     @property
     def step_mean_s(self) -> float:
@@ -165,7 +187,8 @@ def power_limit_w() -> Optional[float]:
 
 def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: torch.device,
              program: Optional[dict] = None) -> dict:
-    """One run of a cell; returns the result line as a dict."""
+    """One run of a cell; returns the result line as a dict. A cell on more
+    than one card runs as a group of ranks, on ``device``'s type."""
     cuda = device.type == "cuda"
 
     def sync():
@@ -175,6 +198,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: torch.d
     if cuda:
         from tpu_sage_torch.kernels import _build
         _build.build()  # every kernel library at once; a no-op once built
+    if spec["chips"] > 1:
+        return _run_group(spec, seed, seconds, trace, device.type, program)
     session = driver(spec["dir"], spec["traffic"]["driver"]).Session(spec, seed, device, program)
 
     # warm-up, also the step time that sizes the event pool
@@ -229,15 +254,122 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device: torch.d
     if cuda:
         torch.cuda.empty_cache()
     values = session.compare()
+    return _report(spec, run, device_info, values, nonfinite)
+
+
+def _run_group(spec: dict, seed: int, seconds: float, trace: bool, device_type: str,
+               program: Optional[dict]) -> dict:
+    """A run of a cell on ``spec["chips"]`` ranks (``_rank_run``), reported
+    by rank 0 for the group."""
+    n = spec["chips"]
+    answers = ranks.run(_rank_run, (spec, seed, seconds, trace, program), n, device_type,
+                        GROUP_SETUP_S + seconds + GROUP_TAIL_S)
+    found = sorted({m for a in answers for m in a["forbidden"]})
+    if found:
+        raise Forbidden(found)
+    lead = answers[0]
+    cuda = device_type == "cuda"
+    kind = torch.cuda.get_device_name(0) if cuda else "cpu"
+    run = Run(cell=spec["name"], work_unit=lead["work_unit"], setup_s=lead["setup_s"],
+              window_s=lead["window_s"], steps=lead["steps"][1],
+              work=float(lead["steps"][1] * lead["work_per_step"]), step_s=lead["step_s"],
+              host_s=lead["host_s"], least=lead["least"], dtype=lead["dtype"],
+              peak=counts.peaks(kind) if cuda else None, trace=lead["trace"], chips=n,
+              traces=[a["trace"] for a in answers] if trace else None)
+    memory = [a["memory_peak_bytes"] for a in answers]
+    device_info = {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": n,
+                   "memory_peak_bytes": max(memory), "memory_peak_bytes_by_rank": memory,
+                   "steps_by_rank": [a["steps"] for a in answers]}
+    if trace:
+        device_info.update(busy_s=run.trace.busy_s(), window_s=run.trace.window_s,
+                           busy_s_by_rank=[t.busy_s() for t in run.traces],
+                           window_s_by_rank=[t.window_s for t in run.traces])
+    if cuda:
+        device_info["power_limit_w"] = power_limit_w()
+    values = checks.worst([a["values"] for a in answers])
+    return _report(spec, run, device_info, values, sum(a["nonfinite"] for a in answers))
+
+
+def _rank_run(device: torch.device, spec: dict, seed: int, seconds: float, trace: bool,
+              program: Optional[dict]) -> dict:
+    """One rank's part of a group's run. Every rank takes the counts of
+    steps that rank 0 sets from the first two warm-up steps, so the
+    collectives inside each step line up; rank 0 times the window."""
+    import torch.distributed as dist
+
+    cuda = device.type == "cuda"
+    lead = dist.get_rank() == 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    session = driver(spec["dir"], spec["traffic"]["driver"]).Session(spec, seed, device, program)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        session.step()
+    sync()
+    warm_step_s = (time.perf_counter() - t0) / 2
+    plan = torch.tensor([max(0, math.ceil(WARM_SECONDS / warm_step_s) - 2),
+                         max(1, math.ceil(seconds / warm_step_s)),
+                         max(3, min(100, int(TRACE_SECONDS / warm_step_s)))],
+                        dtype=torch.int64, device=device)
+    dist.broadcast(plan, src=0)
+    n_warm, n_window, n_trace = (int(c) for c in plan.tolist())
+    for i in range(n_warm):
+        session.step()
+        if (i + 1) % 4 == 0:
+            sync()
+    window = Window(cuda, n_window + 1)
+    host_s: List[float] = []
+    if cuda:
+        dist.barrier(device_ids=[device.index])
+    else:
+        dist.barrier()
+    sync()
+    setup_s = process_age_s()
+    window.mark()
+    t_start = time.perf_counter()
+    for _ in range(n_window):
+        h0 = time.perf_counter()
+        session.step()
+        h1 = time.perf_counter()
+        window.mark()
+        host_s.append(h1 - h0)
+    sync()
+    window_s = time.perf_counter() - t_start
+    traced = profile_steps(session.step, n_trace, sync, cuda) if trace else None
+    answer = {"steps": [2 + n_warm, n_window, n_trace if trace else 0], "trace": traced,
+              "memory_peak_bytes": int(torch.cuda.max_memory_allocated(device)) if cuda else 0,
+              "work_unit": session.work_unit, "work_per_step": session.work_per_step,
+              "least": session.least_counts(), "dtype": session.peak_dtype,
+              "nonfinite": session.nonfinite()}
+    if lead:
+        answer.update(setup_s=setup_s, window_s=window_s, step_s=window.gaps_s(), host_s=host_s)
+    session.release()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    answer["values"] = session.compare()
+    answer["forbidden"] = forbidden_modules()
+    return answer
+
+
+def _report(spec: dict, run: Run, device_info: dict, values: Dict[str, float],
+            nonfinite: int) -> dict:
+    """The result line of a run: the verdict on ``values`` and the failed
+    steps, the cell's metrics read from ``run``, and ``checks`` last."""
     values["nonfinite_steps"] = float(nonfinite)
     verdict = checks.judge(values, spec["limits"])
+    trace = run.trace is not None
 
     metrics = {}
     for m in spec["per_layer"] if trace else spec["end_to_end"]:
         v = reader(spec["dir"], m["name"])(run)
         if v is not None:
             metrics[m["name"]] = {"value": v, "unit": m["unit"]}
-    result = {"correct": all(c["ok"] for c in verdict.values()), "attempted": steps,
+    result = {"correct": all(c["ok"] for c in verdict.values()), "attempted": run.steps,
               "failed": nonfinite, "metrics": metrics, "device": device_info}
     if trace:
         result["breakdown"] = {"device_ops": run.trace.top_device_ops(),

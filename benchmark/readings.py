@@ -19,7 +19,9 @@ check compares:
   of each batch, the other half left out.
 
 The benchmark's own runs never run these; they are for setting and
-re-checking the limits in ``limits/<cell>.json`` on the card.
+re-checking the limits in ``limits/<cell>.json`` on the card. A cell on
+more than one card reads in one group of ranks (``ranks.py``), every seed
+in it, and each number of a line is its worst over the ranks.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import sys
 
 import torch
 
-from benchmark import harness
+from benchmark import checks, harness, ranks
 
 TRAIN_WHAT = ("program", "control", "half_batch")
 EXACT_WHAT = ("program", "control", "program_tf32")
@@ -51,11 +53,43 @@ def half_batch():
         losses.loss_lookup["classification"] = full
 
 
+READING_S = 120.0  # a group's time limit for each reading, beside its set-up
+
+
 def reading(spec: dict, seed: int, what: str, device: torch.device) -> dict:
     """One reading of the numbers the check compares."""
-    kind = spec["traffic"]["driver"]
-    session_cls = harness.driver(spec["dir"], kind).Session
-    if kind == "exact_embed":
+    return readings(spec, [seed], [what], device)[0]
+
+
+def readings(spec: dict, seeds, whats, device: torch.device) -> list:
+    """``reading`` of each kind in ``whats`` for each seed, in that order: on
+    one card one by one; on more, in one group of ranks, each number the
+    worst over them."""
+    heads = [{"cell": spec["name"], "what": what, "seed": seed} for what in whats for seed in seeds]
+    if spec["chips"] == 1:
+        values = [_values(spec, h["seed"], h["what"], device) for h in heads]
+    else:
+        # the ranks import the function by its module's name, also when this runs as a script
+        from benchmark import readings as by_name
+
+        per_rank = ranks.run(by_name._rank_values, (spec, heads), spec["chips"], device.type,
+                             harness.GROUP_SETUP_S + READING_S * len(heads))
+        values = [checks.worst(list(got)) for got in zip(*per_rank)]
+    return [{**h, **v} for h, v in zip(heads, values)]
+
+
+def _rank_values(device: torch.device, spec: dict, heads: list) -> list:
+    out = []
+    for h in heads:
+        out.append(_values(spec, h["seed"], h["what"], device))
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _values(spec: dict, seed: int, what: str, device: torch.device) -> dict:
+    session_cls = harness.driver(spec["dir"], spec["traffic"]["driver"]).Session
+    if session_cls.work_unit == "nodes":  # an exact pass
         session = session_cls(spec, seed, device)
         if what == "control":
             session.outputs = [session.reference("tf32")]
@@ -72,8 +106,7 @@ def reading(spec: dict, seed: int, what: str, device: torch.device) -> dict:
         session = session_cls(spec, seed, device,
                               {"feature_int8": True} if what == "control" else None)
     session.release()
-    values = session.compare()
-    return {"cell": spec["name"], "what": what, "seed": seed, **values}
+    return session.compare()
 
 
 def main(argv=None) -> int:
@@ -88,19 +121,23 @@ def main(argv=None) -> int:
         print("readings: no CUDA device", file=sys.stderr)
         return 2
     spec = harness.load_cell(args.workload)
-    exact = spec["traffic"]["driver"] == "exact_embed"
+    exact = harness.driver(spec["dir"], spec["traffic"]["driver"]).Session.work_unit == "nodes"
     whats = args.what.split(",") if args.what else (EXACT_WHAT if exact else TRAIN_WHAT)
     device = torch.device("cuda", 0)
     from tpu_sage_torch.kernels import _build
     _build.build()
-    for what in whats:
-        for seed in (int(s) for s in args.seeds.split(",")):
-            line = json.dumps(reading(spec, seed, what, device))
-            print(line, flush=True)
-            if args.out:
-                with open(args.out, "a") as f:
-                    f.write(line + "\n")
-            torch.cuda.empty_cache()
+    seeds = [int(s) for s in args.seeds.split(",")]
+    if spec["chips"] > 1:
+        lines = readings(spec, seeds, whats, device)
+    else:
+        lines = (reading(spec, seed, what, device) for what in whats for seed in seeds)
+    for values in lines:
+        line = json.dumps(values)
+        print(line, flush=True)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        torch.cuda.empty_cache()
     return 0
 
 

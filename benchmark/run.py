@@ -12,6 +12,10 @@ last ``checks``, each compared number beside its limit; the same numbers are
 the last lines of standard error. Without a CUDA card, or with fewer cards
 than the cell asks for, or with JAX or the JAX package loaded, it prints no
 result and exits with a code other than 0.
+
+A cell on n > 1 cards runs as n ranks, this process rank 0 on ``cuda:0``
+(``ranks.py``): one line for the group. When a rank fails or the group
+overruns its time limit, every rank is ended and the run prints no result.
 """
 
 from __future__ import annotations
@@ -49,11 +53,14 @@ def main(argv=None) -> int:
         print(f"benchmark: {args.workload} needs {spec['chips']} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 2
-    result = harness.run_cell(spec, args.seed, args.seconds, bool(args.trace),
-                              torch.device("cuda", 0))
-    found = harness.forbidden_modules()
+    try:
+        result = harness.run_cell(spec, args.seed, args.seconds, bool(args.trace),
+                                  torch.device("cuda", 0))
+        found = harness.forbidden_modules()
+    except harness.Forbidden as e:
+        found = e.found
     if found:
-        print(f"benchmark: the process loaded {found}; no result", file=sys.stderr)
+        print(f"benchmark: the run loaded {found}; no result", file=sys.stderr)
         return 3
     for name, c in result["checks"].items():
         print(f"check {name} = {c['value']!r} limit {c['limit']!r}", file=sys.stderr)

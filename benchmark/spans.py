@@ -51,12 +51,14 @@ def span_ms(run, name: str) -> Optional[float]:
 
 
 def reduce_least_bytes(run) -> Optional[float]:
-    """Least bytes of a pass's neighbour summaries, from the cell's shapes:
-    each layer's gathered block (``n * degree`` rows of the width it
-    gathers: the pools' hidden width, else the layer's input) read once and
-    its ``n`` summaries of that width written once, in the table's dtype.
-    None where the run's shapes are not the cell's (its least counts differ
-    from ``counts.exact_pass`` of them)."""
+    """Least bytes of rank 0's part of a pass's neighbour summaries, from
+    the cell's shapes: each layer's gathered block (``rows * degree`` rows
+    of the width it gathers: the pools' hidden width, else the layer's
+    input) read once and its ``rows`` summaries of that width written once,
+    in the table's dtype. ``rows`` is rank 0's share of the ``n`` nodes,
+    ``ceil(n / chips)`` padded rows (``dist/partition.py::pad_to_shards``):
+    all ``n`` on one card. None where the run's shapes are not the cell's
+    (its least counts differ from ``counts.exact_pass`` of them)."""
     from benchmark import counts, graphgen, harness
 
     spec = harness.load_cell(run.cell)
@@ -66,9 +68,10 @@ def reduce_least_bytes(run) -> Optional[float]:
     if counts.exact_pass(g["n_nodes"], g["feat_dim"], model["output_dims"], g["degree"],
                          value_bytes, int(spec["traffic"]["chunk"]), pool) != run.least:
         return None
+    rows = -(-g["n_nodes"] // run.chips)
     total, d_in = 0.0, g["feat_dim"]
     for d_out in model["output_dims"]:
-        total += g["n_nodes"] * (g["degree"] + 1) * (pool or d_in) * value_bytes
+        total += rows * (g["degree"] + 1) * (pool or d_in) * value_bytes
         d_in = 2 * d_out  # concat, as counts.exact_pass takes it
     return total
 

@@ -30,3 +30,16 @@ def test_leaf_gap_and_moving_leaves():
     assert abs(max(checks.leaf_gaps(prog, ref).values()) - 0.1) < 1e-6
     assert checks.moving_leaves(ref) == ["a", "b"]
     assert max(checks.leaf_gaps({}, ref, ["a", "b"]).values()) == 1.0
+
+
+def test_worst_over_ranks():
+    ranks = [{"embed_err": 1e-7, "nonfinite_steps": 0.0, "gap": 2.0},
+             {"embed_err": 3e-4, "nonfinite_steps": 0.0, "gap": float("nan")},
+             {"embed_err": 2e-7, "nonfinite_steps": 0.0}]
+    got = checks.worst(ranks)
+    assert got["embed_err"] == 3e-4 and got["nonfinite_steps"] == 0.0
+    assert got["gap"] is None  # a rank that did not produce it
+    both = checks.worst(ranks[:2])
+    assert both["gap"] != both["gap"]  # the rank's nan, not the other's 2.0
+    verdict = checks.judge(got, {"embed_err": 2e-4, "gap": 1.0})
+    assert not verdict["embed_err"]["ok"] and not verdict["gap"]["ok"]

@@ -31,4 +31,6 @@ def test_control_fails_and_the_program_passes_at_a_toy_size(cell, seed):
 @pytest.mark.parametrize("cell", cells())
 def test_control_fails_at_the_cells_size(cell, card):
     spec = harness.load_cell(cell)
+    if torch.cuda.device_count() < spec["chips"]:
+        pytest.skip(f"{cell} needs {spec['chips']} cards; {torch.cuda.device_count()} here")
     assert not all(c["ok"] for c in verdict(spec, 2**31 + 99, "control", card).values())

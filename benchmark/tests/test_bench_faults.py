@@ -1,7 +1,8 @@
 """A run with its timed path broken underneath comes out not correct: the
 harness's whole run at a toy size on the CPU, with the look for a card
-skipped, once for each fault a cell can have. (One card: no exchange
-between chips to leave out.)"""
+skipped, once for each fault a cell can have. The four-rank cell runs as
+gloo ranks, each pass of every rank under the fault (``toy.wrapped``), and
+can also leave out the exchange between chips."""
 
 import contextlib
 
@@ -9,7 +10,7 @@ import pytest
 import torch
 
 from benchmark import harness, readings
-from benchmark.tests.toy import EXACT, POOL, TRAIN, toy_cell
+from benchmark.tests.toy import EXACT, PART, POOL, TRAIN, copy_checkout, toy_cell, wrapped
 
 CPU = torch.device("cpu")
 
@@ -49,18 +50,20 @@ def altered_id():
 
 @contextlib.contextmanager
 def altered_answer():
-    """One node's embedding changed where the exact pass produces it."""
+    """One node's embedding changed where the exact pass produces it (of a
+    partitioned pass, one of each rank's nodes)."""
     from tpu_sage_torch.nn import full_graph
 
-    real = full_graph.embed_all_nodes
-
-    def altered(*a, **kw):
-        out = real(*a, **kw).clone()
-        out[7] *= -1.0
-        return out
+    def altering(real):
+        def altered(*a, **kw):
+            out = real(*a, **kw).clone()
+            out[7] *= -1.0
+            return out
+        return altered
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(full_graph, "embed_all_nodes", altered)
+        for name in ("embed_all_nodes", "embed_all_nodes_partitioned"):
+            mp.setattr(full_graph, name, altering(getattr(full_graph, name)))
         yield
 
 
@@ -81,7 +84,26 @@ def half_the_neighbours():
         yield
 
 
-@pytest.mark.parametrize("cell", [TRAIN, EXACT, POOL])
+@contextlib.contextmanager
+def no_exchange():
+    """The exchange between chips left out: each rank answers a chunk's
+    neighbour ids from its own shard alone, a zero row for every id it
+    does not own."""
+    from tpu_sage_torch.dist.mesh import rank
+    from tpu_sage_torch.nn import full_graph
+
+    def local(src, ids):
+        m = src.shape[0]
+        own = ids - rank() * m
+        return full_graph._gather_local(src, torch.where((ids >= 0) & (own >= 0) & (own < m),
+                                                         own, -1))
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(full_graph, "_gather_halo", local)
+        yield
+
+
+@pytest.mark.parametrize("cell", [TRAIN, EXACT, POOL, PART])
 def test_sound_run_is_correct(cell):
     assert run(cell)["correct"] is True
 
@@ -98,4 +120,12 @@ def test_training_faults_fail(fault):
 def test_exact_faults_fail(cell, fault):
     with fault():
         r = run(cell)
+    assert r["correct"] is False, r["checks"]
+
+
+@pytest.mark.parametrize("fault", [altered_answer, half_the_neighbours, no_exchange])
+def test_faults_of_the_four_rank_cell_fail(tmp_path, fault):
+    spec = wrapped(toy_cell(PART), copy_checkout(tmp_path), f"{__name__}:{fault.__name__}")
+    r = harness.run_cell(spec, 2**31 + 5, 0.2, False, CPU)
+    assert r["device"]["count"] == 4
     assert r["correct"] is False, r["checks"]

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.toy import EXACT, TRAIN, cells, toy, toy_cell
+from benchmark.tests.toy import EXACT, PART, TRAIN, cells, copy_checkout, toy, toy_cell
 
 CPU = torch.device("cpu")
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
@@ -60,17 +60,8 @@ def test_every_cell_reports_what_the_contract_asks():
         assert NAME.fullmatch(entry["name"])
 
 
-def _copy_checkout(tmp_path):
-    root = tmp_path / "checkout"
-    root.mkdir()
-    shutil.copy(os.path.join(harness.ROOT, "BENCHMARK.json"), root)
-    shutil.copytree(os.path.join(harness.ROOT, "benchmark"), root / "benchmark",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    return root
-
-
 def test_new_cell_and_metric_from_new_files_alone(tmp_path):
-    root = _copy_checkout(tmp_path)
+    root = copy_checkout(tmp_path)
     here = root / "benchmark"
     before = {p: p.read_bytes() for p in here.rglob("*") if p.is_file()}
     # a later PR: a traffic file, a metric reader, a limits file, and entries
@@ -90,6 +81,26 @@ def test_new_cell_and_metric_from_new_files_alone(tmp_path):
                                "workloads": ["reddit-sup.train-b256"]})
     for m in train["end_to_end"]:  # the training metrics, listed for this cell
         bench["end_to_end"].append({**m, "bound": 0.25, "workloads": ["reddit-sup.train-b256"]})
+
+    # and a four-rank cell: a traffic file of the partitioned pass, a reader,
+    # limits, the cell and its entries
+    (here / "traffic" / "exact-embed-part4-c2048.json").write_text(json.dumps(
+        {"driver": "exact_embed_part", "chunk": 2048, "table_dtype": "float32",
+         "loop": "closed"}))
+    (here / "metrics" / "ranks_seen.infer.py").write_text(
+        "def read(run):\n    return float(run.chips)\n")
+    shutil.copy(here / "limits" / f"{PART}.json",
+                here / "limits" / "reddit-sup.exact-embed.part4-c2048.json")
+    bench["workloads"].append({"name": "reddit-sup.exact-embed.part4-c2048",
+                               "config": "reddit-sage-mean-sup",
+                               "traffic": "exact-embed-part4-c2048", "chips": 4,
+                               "why": "smaller chunks over four ranks"})
+    next(m for m in bench["end_to_end"] if m["name"] == "infer_nodes_per_s")["workloads"].append(
+        "reddit-sup.exact-embed.part4-c2048")
+    bench["per_layer"].append({"name": "ranks_seen.infer", "unit": "ranks", "better": "higher",
+                               "source": "host_clock", "layer": "device",
+                               "moves": "infer_nodes_per_s",
+                               "workloads": ["reddit-sup.exact-embed.part4-c2048"]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     assert all(p.read_bytes() == b for p, b in before.items())  # nothing edited
 
@@ -99,6 +110,12 @@ def test_new_cell_and_metric_from_new_files_alone(tmp_path):
     r = harness.run_cell(spec, 3, 0.3, True, CPU)
     assert r["correct"] and r["metrics"]["steps_seen.train"]["value"] > 0
     assert r["metrics"]["steps_seen.train"]["unit"] == "steps"
+
+    spec = toy(harness.load_cell("reddit-sup.exact-embed.part4-c2048", str(root)))
+    assert spec["chips"] == 4 and spec["traffic"]["driver"] == "exact_embed_part"
+    r = harness.run_cell(spec, 3, 0.3, True, CPU)
+    assert r["correct"] and r["device"]["count"] == 4
+    assert r["metrics"]["ranks_seen.infer"] == {"value": 4.0, "unit": "ranks"}
 
 
 def test_runner_refuses_without_a_card():
@@ -111,7 +128,7 @@ def test_runner_refuses_without_a_card():
 
 
 def test_runner_refuses_without_the_program(tmp_path):
-    root = _copy_checkout(tmp_path)
+    root = copy_checkout(tmp_path)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     p = subprocess.run([sys.executable, "-m", "benchmark.run", "--workload",
                         EXACT, "--seed", "1", "--seconds", "1", "--trace", "0"],

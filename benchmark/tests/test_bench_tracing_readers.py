@@ -72,7 +72,7 @@ def _least(cell):
                              g["degree"], 4, spec["traffic"]["chunk"], pool)
 
 
-def _run(work_unit="nodes", trace=True, cell="reddit-sup.exact-embed"):
+def _run(work_unit="nodes", trace=True, cell="reddit-sup.exact-embed", chips=1):
     # device busy 0-10, 20-30, 50-60, 100-110 us; the host in a pass over 0-75
     # and, inside it, in an aten op at 12-18 and the buffer request at 38-42
     device = [("k", 0.0, 10.0), ("k", 20.0, 30.0), ("k", 50.0, 60.0), ("k", 100.0, 110.0)]
@@ -83,7 +83,7 @@ def _run(work_unit="nodes", trace=True, cell="reddit-sup.exact-embed"):
                        work=16.0, step_s=[], host_s=[], least=_least(cell), dtype="float32",
                        peak={"hbm_bytes_per_s": HBM},
                        trace=Trace(steps=2, window_s=0.2, device_ops=device, host_ops=host)
-                       if trace else None)
+                       if trace else None, chips=chips)
 
 
 def test_readers_on_known_spans_and_gaps(tracing):
@@ -146,3 +146,25 @@ def test_span_readers_leave_out_spans_without_device_time(tracing):
     assert _read("exact_gather_ms.infer", run) == pytest.approx(20.0)
     run.peak = None
     assert _read("exact_reduce_roofline.infer", run) is None
+
+
+@pytest.mark.parametrize("cell", ["reddit-sup.exact-embed", "reddit-sup.exact-embed.part4"])
+def test_shares_count_the_work_their_time_covers(tracing, cell):
+    """At four cards the pass's share of the peak is of four cards' peak,
+    and rank 0's reduce spans are of its 58,242 padded rows (a quarter of
+    232,968); at one card, what the readers read before ranks existed."""
+    _passes(tracing, 2)
+    one, four = _run(cell=cell), _run(cell=cell, chips=4)
+    for run in (one, four):
+        run.peak = {"hbm_bytes_per_s": HBM, "float32_flops_per_s": 6.7e13}
+        run.trace.device_ops.append(("gather_rows_words_kernel", 200.0, 210.0))
+    least = counts.least_seconds(one.least, one.peak, "float32")
+    assert _read("pass_mfu.infer", one) == least / one.step_mean_s * 100.0
+    assert _read("pass_mfu.infer", four) == pytest.approx(least / 4 / one.step_mean_s * 100.0,
+                                                          rel=1e-12)
+    assert spans.reduce_least_bytes(one) == CELLS["reddit-sup.exact-embed"]
+    assert spans.reduce_least_bytes(four) == 58_242 * 129 * (602 + 256) * 4
+    assert _read("exact_reduce_roofline.infer", four) == pytest.approx(
+        _read("exact_reduce_roofline.infer", one) * 58_242 / 232_965, rel=1e-12)
+    assert _read("gather_rows_roofline.infer", one) is not None
+    assert _read("gather_rows_roofline.infer", four) is None
